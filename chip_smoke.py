@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of EcoShift on one NVIDIA GPU and check it.
+
+Run from the root of a copy of the repository (no build step, no network):
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure before the last line:
+
+ 1. the card (``nvidia-smi`` name and power limit) and the versions;
+ 2. build of the CUDA kernel from ``src/repro_torch/kernels/csrc`` (the
+    ``-Xptxas -v`` summary);
+ 3. the (max,+) stage kernel against its plain PyTorch version on the
+    card, bitwise, at the main path's shapes, with times and bounds;
+ 4. the main path: a 256-node SYSTEM_2 cluster for 4 rounds (pool budget,
+    one failure, one straggler) through ``ClusterSim.run`` under
+    ``solver="pallas"`` (the kernel) and ``solver="jax"`` (the plain
+    version), bitwise equal round by round, with the kernel's launch count
+    equal to the DP stages run, and round 0 held against the float64 numpy
+    DP; then the device busy share of one round from ``torch.profiler``;
+ 5. one ungrouped round and one ``allocate_batch`` budget sweep, each held
+    against its plain-version run;
+ 6. one JSON line listing each ported kernel, then the result line.
+
+It exits 2 without printing a result when no CUDA card is present or when
+the port's sources are not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+N_NODES = 256
+N_ROUNDS = 4
+N_BUDGETS = 8  # budgets of the allocate_batch sweep
+# NVIDIA H100 SXM data sheet at its 700 W limit: float32 outside the tensor
+# cores, and HBM3 bandwidth
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# round 0 of the kernel path against the float64 numpy DP: the float32 DP
+# sums ~200 values below 1, so its total may differ by ~200 ulp(100)
+REL_TOL_F64 = 1e-4
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int32 if a.dtype in (torch.float32, torch.int32) else a.dtype
+    return bool(torch.equal(a.contiguous().view(view), b.contiguous().view(view)))
+
+
+def _max_abs_err(a, b) -> float:
+    import torch
+
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+
+def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn`` on the card, timed by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound_ms(rows: int, nb: int) -> tuple[float, str]:
+    """Least time for one stage: every candidate is one add and one compare
+    on float32; each input read once, each output written once."""
+    ops = 2.0 * rows * nb * (nb + 1) / 2
+    nbytes = 4.0 * rows * nb * 4  # dp, f in; out, arg out
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _stage_inputs(rows: int, nb: int, seed: int, dev):
+    """Seeded dp, f [rows, nb] float32 on a 1/8 lattice (many exact ties)
+    with some -inf curve entries."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dp = np.round(rng.uniform(0, 100, (rows, nb)) * 8) / 8
+    f = np.round(rng.uniform(0, 4, (rows, nb)) * 8) / 8
+    f[rng.random((rows, nb)) < 0.1] = -np.inf
+    f[:, 0] = 0.0
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    return as_t(dp), as_t(f)
+
+
+def kernel_phase(dev, nb_main: int) -> dict:
+    """Phase 3: each wrapper against the plain version at the main path's
+    shapes; returns the measured stats of the two ported kernels."""
+    from repro_torch.kernels import mckp_dp, ref
+
+    cases = [
+        ("batched R=1 (grouped main-path stage)", mckp_dp.maxplus_conv_batched, 1, nb_main),
+        ("batched R=8 (budget sweep stage)", mckp_dp.maxplus_conv_batched, N_BUDGETS, nb_main),
+        ("batched R=3, NB not a multiple of 128", mckp_dp.maxplus_conv_batched, 3, 1000 + 37),
+        ("single row (ungrouped stage)", mckp_dp.maxplus_conv, 1, nb_main),
+    ]
+    stats = {}
+    for i, (label, fn, rows, nb) in enumerate(cases):
+        dp, f = _stage_inputs(rows, nb, SEED + i, dev)
+        if fn is mckp_dp.maxplus_conv:
+            dp, f = dp[0], f[0]
+            plain = ref.maxplus_conv
+        else:
+            plain = ref.maxplus_conv_batched
+        out, arg = fn(dp, f)
+        want_out, want_arg = plain(dp, f)
+        check(
+            _bits_equal(out, want_out) and _bits_equal(arg, want_arg),
+            f"kernel != plain version for {label}",
+        )
+        err = _max_abs_err(out, want_out)
+        ms = _cuda_ms(lambda: fn(dp, f), iters=20)
+        plain_ms = _cuda_ms(lambda: plain(dp, f), iters=2, warmup=1)
+        bound_ms, bound_by = _bound_ms(rows, nb)
+        print(
+            f"kernel {label}: rows={rows} nb={nb} bitwise out+arg ok, "
+            f"max_abs_err={err} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}, f32 {PEAK_F32_OPS:.3g} op/s) "
+            f"roofline_share={bound_ms / ms:.4f} plain_over_kernel={plain_ms / ms:.1f} "
+            f"library_ms=null (no single PyTorch call computes a (max,+) convolution)"
+        )
+        if rows == 1 and nb == nb_main:
+            stats[fn.__name__] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+    return stats
+
+
+def _records_equal(a, b) -> bool:
+    for ra, rb in zip(a.records, b.records, strict=True):
+        aa, ab = ra.result.allocation, rb.result.allocation
+        if (
+            dict(aa.caps) != dict(ab.caps)
+            or aa.spent != ab.spent
+            or aa.predicted_improvement != ab.predicted_improvement
+            or ra.result.improvements != rb.result.improvements
+        ):
+            return False
+    return True
+
+
+def _run(sim, scen, dev, solver: str, **kw):
+    """One scenario under a fresh controller; returns (result, seconds)."""
+    import torch
+
+    from repro_torch.cluster import make_controller
+    from repro_torch.core import types
+
+    ctrl = make_controller("ecoshift", types.SYSTEM_2, solver=solver, device=dev, **kw)
+    t0 = time.perf_counter()
+    res = sim.run(scen, ctrl)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _stages(res) -> int:
+    return sum(len(r.result.improvements) for r in res.records)
+
+
+def main_path_phase(dev, fresh_sim, scen) -> int:
+    """Phase 4; returns the batched kernel's launches on the main path."""
+    from repro_torch.kernels import mckp_dp
+
+    mckp_dp.reset_launches()
+    res_k, wall_k = _run(fresh_sim(), scen, dev, "pallas")
+    launches = dict(mckp_dp.launches)
+    res_p, wall_p = _run(fresh_sim(), scen, dev, "jax")
+    stages = _stages(res_k)
+    print(
+        f"main path: {N_NODES} nodes, {N_ROUNDS} rounds, launches={launches} "
+        f"dp_stages={stages} wall_s pallas={wall_k:.4f} jax={wall_p:.4f}"
+    )
+    check(launches["maxplus_conv_batched"] == stages, "launches != DP stages")
+    check(launches["maxplus_conv"] == 0, "grouped path launched the single-row entry")
+    check(_records_equal(res_k, res_p), "pallas and jax rounds differ")
+    for rk, rp in zip(res_k.records, res_p.records):
+        alloc = rk.result.allocation
+        budget = rk.result.budget
+        check(alloc.spent <= budget + 1e-9, f"round {rk.round} overspends")
+        imps = list(rk.result.improvements.values())
+        check(all(abs(x) < 1.0 for x in imps), f"round {rk.round}: bad improvement")
+        sk, sp = rk.seconds, rp.seconds
+        print(
+            f"round {rk.round}: receivers={len(imps)} nb={int(budget) + 1} "
+            f"budget={budget!r} spent={alloc.spent!r} "
+            f"avg_improvement={alloc.predicted_improvement!r} "
+            f"pallas round_s={sum(sk.values()):.4f} (allocate_s="
+            f"{sk['allocate_s']:.4f}) jax round_s={sum(sp.values()):.4f} "
+            f"(allocate_s={sp['allocate_s']:.4f})"
+        )
+    # round 0 against the float64 numpy DP on the same cluster
+    from repro_torch.cluster import Scenario
+
+    res_d, _ = _run(fresh_sim(), Scenario.constant(1), dev, "dense")
+    got = res_k.records[0].result.allocation.predicted_improvement
+    want = res_d.records[0].result.allocation.predicted_improvement
+    rel = abs(got - want) / abs(want)
+    print(f"round 0 vs float64 numpy DP: avg_improvement {got!r} vs {want!r} rel={rel:.3g}")
+    check(rel <= REL_TOL_F64, "round 0 far from the float64 DP")
+    return launches["maxplus_conv_batched"]
+
+
+def busy_share_phase(dev, fresh_sim) -> None:
+    """Device busy share of one kernel-path round, from torch.profiler:
+    the summed durations of the device-side events (kernels and copies on
+    the one stream the round uses, so they do not overlap) over the round's
+    host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cluster import Scenario
+
+    sim = fresh_sim()
+    _run(sim, Scenario.constant(1), dev, "pallas")  # loads the kernel library
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _run(sim, Scenario.constant(1), dev, "pallas")
+    by_kernel: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_s = sum(by_kernel.values()) / 1e6
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+    if device_s:
+        print(
+            f"profiled round: wall_s={wall:.4f} device_busy_s={device_s:.4f} "
+            f"busy_share={device_s / wall:.4f} top_device_us_and_share="
+            + json.dumps(
+                {k[:60]: [round(v, 1), round(v / 1e6 / wall, 4)] for k, v in top}
+            )
+        )
+    else:
+        print(f"profiled round: wall_s={wall:.4f} busy_share=not measured "
+              "(the profiler recorded no device time)")
+
+
+def variants_phase(dev, fresh_sim) -> int:
+    """Phase 5; returns the single-row kernel's launches on the ungrouped
+    round."""
+    from repro_torch.cluster import Scenario, make_controller
+    from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
+
+    scen = Scenario.constant(1)
+    mckp_dp.reset_launches()
+    res_k, wall_k = _run(fresh_sim(), scen, dev, "pallas", grouped=False)
+    launches = dict(mckp_dp.launches)
+    res_p, wall_p = _run(fresh_sim(), scen, dev, "jax", grouped=False)
+    print(
+        f"ungrouped round: launches={launches} dp_stages={_stages(res_k)} "
+        f"wall_s pallas={wall_k:.4f} jax={wall_p:.4f}"
+    )
+    check(launches["maxplus_conv"] == _stages(res_k), "ungrouped launches != stages")
+    check(_records_equal(res_k, res_p), "ungrouped pallas and jax differ")
+
+    sim = fresh_sim()
+    _, recv, pool = sim.partition()
+    apps = [n.app for n in recv]
+    baselines = {n.app.name: n.caps for n in recv}
+    seen = {n.app.name: sim._surface(n) for n in recv}
+    budgets = [pool * (i + 1) / N_BUDGETS for i in range(N_BUDGETS)]
+    sols = {}
+    for solver in ("pallas", "jax"):
+        ctrl = make_controller("ecoshift", types.SYSTEM_2, solver=solver, device=dev)
+        mckp_dp.reset_launches()
+        t0 = time.perf_counter()
+        sols[solver] = ctrl.allocate_batch(apps, baselines, budgets, seen)
+        wall = time.perf_counter() - t0
+        print(f"allocate_batch {solver}: {len(budgets)} budgets, "
+              f"launches={dict(mckp_dp.launches)} wall_s={wall:.4f}")
+        if solver == "pallas":
+            check(
+                mckp_dp.launches["maxplus_conv_batched"] == len(recv),
+                "allocate_batch launches != stages",
+            )
+    for a, b, budget in zip(sols["pallas"], sols["jax"], budgets):
+        check(dict(a.caps) == dict(b.caps) and a.spent == b.spent,
+              f"allocate_batch differs at budget {budget}")
+        check(a.spent <= budget + 1e-9, "allocate_batch overspends")
+    return launches["maxplus_conv"]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the port's sources are not beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.cluster import ClusterSim, Scenario
+    from repro_torch.core import surfaces, types
+    from repro_torch.kernels import mckp_dp
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    log = mckp_dp.build()
+    print(f"build {mckp_dp.SOURCE.relative_to(ROOT)}: {time.perf_counter() - t0:.2f} s")
+    print(log.strip())
+
+    apps, surfs = surfaces.build_paper_suite(types.SYSTEM_2)
+
+    def fresh_sim():
+        return ClusterSim.build(
+            types.SYSTEM_2, apps, surfs, n_nodes=N_NODES, seed=SEED, device=dev
+        )
+
+    _, recv, pool = fresh_sim().partition()
+    nb_main = int(pool) + 1
+    print(f"cluster: {N_NODES} nodes, {len(recv)} receivers, pool {pool!r} W, NB {nb_main}")
+    stats = kernel_phase(dev, nb_main)
+
+    scen = (
+        Scenario.constant(N_ROUNDS)
+        .with_failure(1, recv[0].node_id)
+        .with_straggler(2, recv[1].node_id, 1.8)
+    )
+    launches = {"maxplus_conv_batched": main_path_phase(dev, fresh_sim, scen)}
+    busy_share_phase(dev, fresh_sim)
+    launches["maxplus_conv"] = variants_phase(dev, fresh_sim)
+
+    source = str(mckp_dp.SOURCE.relative_to(ROOT))
+    replaces = {
+        "maxplus_conv_batched": "src/repro/kernels/mckp_dp.py:194",
+        "maxplus_conv": "src/repro/kernels/mckp_dp.py:247",
+    }
+    kernels = []
+    for name in ("maxplus_conv_batched", "maxplus_conv"):
+        check(launches[name] > 0, f"{name} was not launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces[name], "launches": launches[name],
+            **stats[name], "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,38 @@
+"""Stateful, vectorized cluster control loop (EcoShift §5.4, multi-round).
+
+ * ``budget``     — budget/price/carbon providers;
+ * ``scenario``   — declarative event timelines;
+ * ``predictor``  — round telemetry records and batches;
+ * ``controller`` — stateful controllers carrying warm option tables;
+ * ``sim``        — the time-stepped multi-round engine.
+"""
+
+from repro_torch.cluster.budget import (  # noqa: F401
+    BudgetProvider,
+    ConstantProvider,
+    TraceReplayProvider,
+    as_provider,
+)
+from repro_torch.cluster.scenario import (  # noqa: F401
+    NodeArrival,
+    NodeFailure,
+    PhaseChange,
+    Scenario,
+    StragglerOnset,
+)
+from repro_torch.cluster.predictor import (  # noqa: F401
+    TelemetryBatch,
+    TelemetryRecord,
+)
+from repro_torch.cluster.sim import (  # noqa: F401
+    ClusterSim,
+    NodeState,
+    NodeTable,
+    RoundRecord,
+    SimResult,
+)
+from repro_torch.cluster.controller import (  # noqa: F401
+    Controller,
+    ControllerConfig,
+    make_controller,
+)

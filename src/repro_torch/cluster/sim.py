@@ -1,0 +1,708 @@
+"""Time-stepped multi-round cluster simulation engine (paper §5.4, temporal).
+
+``ClusterSim`` owns the cluster state and steps a :class:`Scenario` against
+a stateful :class:`~repro_torch.cluster.controller.Controller`:
+
+ 1. apply this round's events (failures, stragglers, arrivals, phase
+    changes) and invalidate the controller's per-receiver warm state;
+ 2. partition donors/receivers, derive (or read) the reclaimed budget;
+ 3. the controller allocates; the engine measures true improvements and
+    emits them as a :class:`~repro_torch.cluster.predictor.TelemetryBatch`.
+
+State is columnar (:class:`NodeTable`), and measurement is vectorized with
+the same RNG stream as ``repro.cluster.sim``, so every record is bitwise
+the reference's.  The engine itself is numpy on the host; the controller's
+solver runs on the sim's ``device`` (None = the CUDA card).
+
+Not ported yet (ROADMAP.md, queue 1, item 5): power topologies with their
+per-domain accounting, the fault-injection actuation and PowerGuard path,
+receding-horizon budget outlooks, and the device-resident ``DeviceView``
+of the node columns.  The reference's round-over-round caches (natural
+draws, partitions, receiver-batch deltas, baseline runtimes) are left out:
+they speed up the host side and never change a result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time as _time
+import zlib
+from typing import Callable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.cluster import scenario as scenario_mod
+from repro_torch.cluster.predictor import TelemetryBatch
+from repro_torch.cluster.scenario import TOPOLOGY_NOT_PORTED, Scenario
+from repro_torch.core.surfaces import PowerSurface
+from repro_torch.core.types import (
+    AppSpec,
+    EmulationResult,
+    ReceiverBatch,
+    SystemSpec,
+)
+from repro_torch.device import resolve_device
+
+#: per-round offset into the measurement RNG stream (round 0 == the legacy
+#: single-round stream)
+_ROUND_STRIDE = 1000003
+
+#: process-global batch sequence numbers
+_BATCH_SEQ = itertools.count(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeState:
+    node_id: int
+    app: AppSpec  # instance (name is unique per node)
+    base_app: str  # underlying app name (surface / predictor identity)
+    caps: tuple[float, float]
+    alive: bool = True
+    slowdown: float = 1.0  # straggler factor on the true surface
+
+
+@dataclasses.dataclass(frozen=True)
+class _SlowedSurface(PowerSurface):
+    base: PowerSurface
+    slowdown: float
+
+    def runtime(self, c, g):
+        return self.base.runtime(c, g) * self.slowdown
+
+    def power_draw(self, c, g):
+        return self.base.power_draw(c, g)
+
+    def improvement(self, base, c, g):
+        # relative improvement is exactly invariant under a constant
+        # slowdown: delegate so a straggler's option table digests
+        # bit-identical to its healthy peers'
+        return self.base.improvement(base, c, g)
+
+
+# ---------------------------------------------------------------------------
+# Columnar node state
+# ---------------------------------------------------------------------------
+
+
+class _Interner:
+    """Append-only string -> small-int table shared by a NodeTable."""
+
+    __slots__ = ("strings", "_ids")
+
+    def __init__(self):
+        self.strings: list[str] = []
+        self._ids: dict[str, int] = {}
+
+    def intern(self, s: str) -> int:
+        i = self._ids.get(s)
+        if i is None:
+            i = len(self.strings)
+            self.strings.append(s)
+            self._ids[s] = i
+        return i
+
+    def __getitem__(self, i: int) -> str:
+        return self.strings[i]
+
+
+class NodeTable:
+    """Struct-of-arrays cluster node state.
+
+    Columns: ``caps [n,2]``, ``alive [n]``, ``slowdown [n]``,
+    ``node_ids [n]`` plus interned-id columns ``base_gid`` (true-surface /
+    base-app name), ``sid_gid`` (the instance AppSpec's surface id),
+    ``name_gid`` (instance name) and ``sclass_gid``, all indexing the shared
+    :class:`_Interner`, and ``domain_id`` (-1: no topology).  Rows are
+    append-only (failures flip ``alive``).
+    """
+
+    def __init__(self):
+        self.interner = _Interner()
+        self.node_ids = np.empty(0, dtype=np.int64)
+        self.caps = np.empty((0, 2), dtype=np.float64)
+        self.alive = np.empty(0, dtype=bool)
+        self.slowdown = np.empty(0, dtype=np.float64)
+        self.base_gid = np.empty(0, dtype=np.int32)
+        self.sid_gid = np.empty(0, dtype=np.int32)
+        self.name_gid = np.empty(0, dtype=np.int32)
+        self.sclass_gid = np.empty(0, dtype=np.int32)
+        self.domain_id = np.empty(0, dtype=np.int32)
+        self.names: list[str] = []
+
+    def __len__(self) -> int:
+        return len(self.node_ids)
+
+    @property
+    def strings(self) -> list[str]:
+        return self.interner.strings
+
+    @staticmethod
+    def from_nodes(nodes: Sequence[NodeState]) -> "NodeTable":
+        t = NodeTable()
+        if not nodes:
+            return t
+        t.node_ids = np.array([n.node_id for n in nodes], dtype=np.int64)
+        t.caps = np.array([n.caps for n in nodes], dtype=np.float64)
+        t.alive = np.array([n.alive for n in nodes], dtype=bool)
+        t.slowdown = np.array([n.slowdown for n in nodes], dtype=np.float64)
+        t.names = [n.app.name for n in nodes]
+        t.base_gid = np.array(
+            [t.interner.intern(n.base_app) for n in nodes], dtype=np.int32
+        )
+        t.sid_gid = np.array(
+            [t.interner.intern(n.app.surface_id) for n in nodes], dtype=np.int32
+        )
+        t.name_gid = np.array(
+            [t.interner.intern(n.app.name) for n in nodes], dtype=np.int32
+        )
+        t.sclass_gid = np.array(
+            [t.interner.intern(n.app.sclass) for n in nodes], dtype=np.int32
+        )
+        t.domain_id = np.full(len(nodes), -1, dtype=np.int32)
+        return t
+
+    def append(
+        self,
+        *,
+        node_id: int,
+        name: str,
+        base_app: str,
+        surface_id: str,
+        sclass: str,
+        caps: tuple[float, float],
+    ) -> None:
+        self.node_ids = np.append(self.node_ids, np.int64(node_id))
+        self.caps = np.concatenate(
+            [self.caps, np.asarray([caps], dtype=np.float64)]
+        )
+        self.alive = np.append(self.alive, True)
+        self.slowdown = np.append(self.slowdown, 1.0)
+        self.names.append(name)
+        self.base_gid = np.append(
+            self.base_gid, np.int32(self.interner.intern(base_app))
+        )
+        self.sid_gid = np.append(
+            self.sid_gid, np.int32(self.interner.intern(surface_id))
+        )
+        self.name_gid = np.append(
+            self.name_gid, np.int32(self.interner.intern(name))
+        )
+        self.sclass_gid = np.append(
+            self.sclass_gid, np.int32(self.interner.intern(sclass))
+        )
+        self.domain_id = np.append(self.domain_id, np.int32(-1))
+
+    def next_node_id(self) -> int:
+        return 1 + int(self.node_ids.max()) if len(self) else 0
+
+    def rows_for_ids(self, ids: Sequence[int]) -> np.ndarray:
+        row_of = {int(nid): r for r, nid in enumerate(self.node_ids)}
+        return np.array([row_of[int(i)] for i in ids], dtype=np.int64)
+
+    def view(self, row: int) -> NodeState:
+        s = self.interner.strings
+        return NodeState(
+            node_id=int(self.node_ids[row]),
+            app=AppSpec(
+                name=self.names[row],
+                sclass=s[self.sclass_gid[row]],
+                surface_id=s[self.sid_gid[row]],
+            ),
+            base_app=s[self.base_gid[row]],
+            caps=(float(self.caps[row, 0]), float(self.caps[row, 1])),
+            alive=bool(self.alive[row]),
+            slowdown=float(self.slowdown[row]),
+        )
+
+    def views(self, rows: Sequence[int] | None = None) -> list[NodeState]:
+        if rows is None:
+            rows = range(len(self))
+        return [self.view(r) for r in rows]
+
+
+def build_nodes(
+    system: SystemSpec,
+    apps: Sequence[AppSpec],
+    *,
+    n_nodes: int,
+    seed: int,
+    initial_caps: tuple[float, float] | None = None,
+) -> list[NodeState]:
+    """Place ``n_nodes`` instances by cycling a shuffled app list."""
+    rng = np.random.default_rng(seed)
+    order = list(apps)
+    rng.shuffle(order)
+    caps = initial_caps or (system.init_cpu, system.init_gpu)
+    nodes = []
+    for i in range(n_nodes):
+        a = order[i % len(order)]
+        inst = AppSpec(
+            name=f"{a.name}#n{i}", sclass=a.sclass, surface_id=a.surface_id
+        )
+        nodes.append(NodeState(node_id=i, app=inst, base_app=a.name, caps=caps))
+    return nodes
+
+
+# ---------------------------------------------------------------------------
+# Round records
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    """Everything observed in one simulated round."""
+
+    round: int
+    result: EmulationResult
+    pool: float  # donor-derived reclaimed pool this round
+    n_alive: int
+    events: tuple = ()
+    power_price: float | None = None
+    #: grid CO2 intensity this round (scenario carbon signal), if any
+    carbon_intensity: float | None = None
+    #: per-receiver noisy measurements (a TelemetryBatch)
+    telemetry: object = ()
+    #: host-clock seconds of the round's phases (partition_s, batch_s,
+    #: allocate_s, measure_s); allocate_s ends after the solver's
+    #: device -> host copy, so it covers the device work
+    seconds: dict | None = None
+
+    @property
+    def avg_improvement(self) -> float:
+        return self.result.avg_improvement
+
+
+@dataclasses.dataclass
+class SimResult:
+    """Trace of a whole scenario under one controller."""
+
+    policy: str
+    records: list[RoundRecord]
+
+    @property
+    def n_rounds(self) -> int:
+        return len(self.records)
+
+    @property
+    def improvement_trace(self) -> np.ndarray:
+        return np.array([r.avg_improvement for r in self.records])
+
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+
+class ClusterSim:
+    """Columnar multi-round cluster engine.
+
+    Constructed from a ``nodes`` list (ingested into a :class:`NodeTable`)
+    or from an existing ``table``.  ``device`` is where controllers built
+    by name solve (None = the CUDA card; raises when there is none).
+    """
+
+    def __init__(
+        self,
+        system: SystemSpec,
+        nodes: Sequence[NodeState] | None = None,
+        surfaces: Mapping[str, PowerSurface] | None = None,
+        n_repeats: int = 5,
+        seed: int = 0,
+        *,
+        table: NodeTable | None = None,
+        topology=None,
+        device: str | torch.device | None = None,
+    ):
+        if topology is not None:
+            raise NotImplementedError(TOPOLOGY_NOT_PORTED)
+        self.system = system
+        self.device = resolve_device(device)
+        #: true surfaces keyed by *base* app name
+        self.surfaces: Mapping[str, PowerSurface] = surfaces or {}
+        self.n_repeats = n_repeats
+        self.seed = seed
+        self.table = (
+            table if table is not None else NodeTable.from_nodes(nodes or [])
+        )
+        #: memoized straggler views: stable object identity per (app,
+        #: slowdown), so identity-keyed option caches stay warm
+        self._slowed: dict = {}
+        #: telemetry emitted by the latest round
+        self.last_telemetry: object = ()
+        #: host-clock seconds of the latest round's phases
+        self.last_round_seconds: dict[str, float] = {}
+
+    @staticmethod
+    def build(
+        system: SystemSpec,
+        apps: Sequence[AppSpec],
+        surfaces: Mapping[str, PowerSurface],
+        *,
+        n_nodes: int = 100,
+        seed: int = 0,
+        initial_caps: tuple[float, float] | None = None,
+        topology=None,
+        device: str | torch.device | None = None,
+    ) -> "ClusterSim":
+        nodes = build_nodes(
+            system, apps, n_nodes=n_nodes, seed=seed, initial_caps=initial_caps
+        )
+        return ClusterSim(
+            system=system,
+            nodes=nodes,
+            surfaces=surfaces,
+            seed=seed,
+            topology=topology,
+            device=device,
+        )
+
+    # -- node state ----------------------------------------------------------
+
+    @property
+    def nodes(self) -> list[NodeState]:
+        """NodeState views of the columnar table (a fresh list each access;
+        assign a node list to replace the cluster state)."""
+        return self.table.views()
+
+    @nodes.setter
+    def nodes(self, value: Sequence[NodeState]) -> None:
+        self.table = NodeTable.from_nodes(value)
+
+    def _surface(self, node: NodeState) -> PowerSurface:
+        return self._surface_of(node.base_app, node.slowdown)
+
+    def _surface_of(self, base_app: str, slowdown: float) -> PowerSurface:
+        s = self.surfaces[base_app]
+        if slowdown == 1.0:
+            return s
+        key = (base_app, slowdown)
+        hit = self._slowed.get(key)
+        if hit is None or hit.base is not s:
+            hit = _SlowedSurface(s, slowdown)
+            self._slowed[key] = hit
+        return hit
+
+    def _natural_draws(self) -> np.ndarray:
+        """[n, 2] natural (uncapped) component draws, one surface query per
+        distinct base app."""
+        t = self.table
+        nat = np.empty((len(t), 2), dtype=np.float64)
+        for gid in np.unique(t.base_gid):
+            c, g = self.surfaces[t.strings[gid]].power_draw(1e9, 1e9)
+            nat[t.base_gid == gid] = (float(c), float(g))
+        return nat
+
+    def partition_rows(self) -> tuple[np.ndarray, np.ndarray, float]:
+        """Array-native partition: (donor_rows, receiver_rows, pool).
+
+        A node donates iff its natural draw sits below its caps on both
+        components (margin 1 W); a dead node donates its entire cap
+        allotment.
+        """
+        t = self.table
+        if not len(t):
+            z = np.empty(0, dtype=np.int64)
+            return z, z, 0.0
+        nat = self._natural_draws()
+        slack = t.caps - nat
+        donor = t.alive & (slack[:, 0] > 1.0) & (slack[:, 1] > 1.0)
+        recv = t.alive & ~donor
+        dead = ~t.alive
+        pool = float(t.caps[dead].sum() + (t.caps - nat)[donor].sum())
+        return np.flatnonzero(donor), np.flatnonzero(recv), pool
+
+    def partition(self) -> tuple[list[NodeState], list[NodeState], float]:
+        """(donors, receivers, reclaimed_pool) as NodeState views."""
+        donors, recv, pool = self.partition_rows()
+        return self.table.views(donors), self.table.views(recv), pool
+
+    # -- events ---------------------------------------------------------------
+
+    def apply_events(self, events: Sequence) -> list[str]:
+        """Apply one round's scenario events to the table's columns in
+        order (later events see earlier ones); returns affected instance
+        names."""
+        t = self.table
+        touched: list[str] = []
+        for event in events:
+            if isinstance(event, scenario_mod.NodeFailure):
+                rows = np.flatnonzero(
+                    np.isin(t.node_ids, np.asarray(event.node_ids))
+                )
+                touched.extend(t.names[r] for r in rows)
+                t.alive[rows] = False
+            elif isinstance(event, scenario_mod.StragglerOnset):
+                rows = np.flatnonzero(t.node_ids == event.node_id)
+                t.slowdown[rows] = event.slowdown
+                touched.extend(t.names[r] for r in rows)
+            elif isinstance(event, scenario_mod.PhaseChange):
+                if event.surface_id not in self.surfaces:
+                    raise KeyError(f"unknown surface {event.surface_id!r}")
+                rows = np.flatnonzero(t.node_ids == event.node_id)
+                gid = np.int32(t.interner.intern(event.surface_id))
+                t.base_gid[rows] = gid
+                t.sid_gid[rows] = gid
+                touched.extend(t.names[r] for r in rows)
+            elif isinstance(event, scenario_mod.NodeArrival):
+                if event.surface is not None:
+                    self.surfaces = {
+                        **self.surfaces, event.app.name: event.surface
+                    }
+                if event.app.name not in self.surfaces:
+                    raise KeyError(
+                        f"no surface for arriving app {event.app.name!r}"
+                    )
+                nid = t.next_node_id()
+                caps = event.caps or (self.system.init_cpu, self.system.init_gpu)
+                t.append(
+                    node_id=nid,
+                    name=f"{event.app.name}#n{nid}",
+                    base_app=event.app.name,
+                    surface_id=event.app.surface_id,
+                    sclass=event.app.sclass,
+                    caps=caps,
+                )
+            else:
+                raise TypeError(
+                    f"unknown event type {type(event).__name__!r}: {event!r}"
+                )
+        return touched
+
+    # -- measurement ----------------------------------------------------------
+
+    def _measure_groups(self, rows: np.ndarray):
+        """Distinct (base surface, slowdown) classes among ``rows`` as
+        (gid, slowdown, member positions into ``rows``) triples, in
+        (gid, slowdown) order."""
+        t = self.table
+        sl = t.slowdown[rows]
+        uniq_s, s_rank = np.unique(sl, return_inverse=True)
+        key = t.base_gid[rows].astype(np.int64) * len(uniq_s) + s_rank
+        uniq, inv = np.unique(key, return_inverse=True)
+        order = np.argsort(inv, kind="stable")
+        counts = np.bincount(inv, minlength=len(uniq))
+        splits = np.split(order, np.cumsum(counts)[:-1])
+        ns = len(uniq_s)
+        return [
+            (int(uniq[k] // ns), float(uniq_s[uniq[k] % ns]), splits[k])
+            for k in range(len(uniq))
+        ]
+
+    def _measure_rows(
+        self,
+        rows: np.ndarray,
+        base: np.ndarray,
+        new: np.ndarray,
+        rng: np.random.Generator,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Vectorized measurement: per-receiver mean measured runtimes at
+        (baseline, allocated) caps plus relative improvements.  One surface
+        evaluation per (surface, slowdown) class and one RNG fill for the
+        whole ``[n, n_repeats, 2]`` noise block."""
+        n = len(rows)
+        if n == 0:
+            z = np.zeros(0, dtype=np.float64)
+            return z, z, z
+        strings = self.table.strings
+        t_base = np.empty(n, dtype=np.float64)
+        t_new = np.empty(n, dtype=np.float64)
+        for gid, slowdown, ii in self._measure_groups(rows):
+            surf = self.surfaces[strings[gid]]
+            tn = np.asarray(surf.runtime(new[ii, 0], new[ii, 1]), np.float64)
+            t_new[ii] = tn * slowdown
+            tb = np.asarray(surf.runtime(base[ii, 0], base[ii, 1]), np.float64)
+            t_base[ii] = tb * slowdown
+
+        sigma = self.system.noise_sigma
+        if sigma > 0:
+            # C-order fill == the sequential per-(node, repeat, base/new)
+            # scalar draws of the legacy loop
+            factors = np.exp(rng.normal(0.0, sigma, size=(n, self.n_repeats, 2)))
+            t0 = (t_base[:, None] * factors[:, :, 0]).mean(axis=1)
+            t1 = (t_new[:, None] * factors[:, :, 1]).mean(axis=1)
+        else:
+            t0, t1 = t_base, t_new
+        imp = (t0 - t1) / t0
+        return t0, t1, imp
+
+    # -- rounds ---------------------------------------------------------------
+
+    def round_rng(self, policy: str, round_index: int) -> np.random.Generator:
+        """Measurement RNG: round 0 replays the legacy run_round stream."""
+        return np.random.default_rng(
+            self.seed
+            + zlib.crc32(policy.encode()) % 100003
+            + round_index * _ROUND_STRIDE
+        )
+
+    def _receiver_batch(
+        self,
+        rows: np.ndarray,
+        policy_surfaces: Mapping[str, PowerSurface] | None,
+        sees_truth: bool,
+    ) -> ReceiverBatch:
+        """Columnar receiver view for group-collapsing controllers."""
+        t = self.table
+        names = [t.names[r] for r in rows]
+        strings = t.strings
+        if policy_surfaces is not None and not sees_truth:
+            surfaces = [policy_surfaces[nm] for nm in names]
+        else:
+            surfaces = [None] * len(rows)
+            for gid, slowdown, ii in self._measure_groups(rows):
+                surf = self._surface_of(strings[gid], slowdown)
+                for i in ii:
+                    surfaces[i] = surf
+        return ReceiverBatch(
+            names=names,
+            surface_ids=[strings[t.sid_gid[r]] for r in rows],
+            baselines=t.caps[rows],
+            surfaces=surfaces,
+            seq=next(_BATCH_SEQ),
+        )
+
+    def run_round(
+        self,
+        controller,
+        budget: float | None = None,
+        *,
+        policy_surfaces: Mapping[str, PowerSurface] | None = None,
+        receivers: Sequence[NodeState] | None = None,
+        round_index: int = 0,
+        _recv_rows: np.ndarray | None = None,
+    ) -> EmulationResult:
+        """One redistribution round under a stateful controller.
+
+        ``policy_surfaces`` is what the policy sees (predicted surfaces for
+        EcoShift; defaults to true surfaces keyed per instance).  ``budget``
+        defaults to the donor-derived reclaimed pool.  Controllers with
+        ``supports_grouped`` allocate from a columnar ``ReceiverBatch``;
+        everyone else gets the per-instance view.  Phase seconds of the
+        round land in ``last_round_seconds``.
+        """
+        secs = self.last_round_seconds = {}
+        t = self.table
+        tp = _time.perf_counter()
+        if receivers is not None:
+            _recv_rows = self.table.rows_for_ids([n.node_id for n in receivers])
+        if _recv_rows is not None and budget is not None:
+            recv_rows = np.asarray(_recv_rows)
+        else:
+            _, part_rows, pool = self.partition_rows()
+            recv_rows = (
+                np.asarray(_recv_rows) if _recv_rows is not None else part_rows
+            )
+        b = float(pool if budget is None else budget)
+        base = t.caps[recv_rows]
+        secs["partition_s"] = _time.perf_counter() - tp
+
+        tp = _time.perf_counter()
+        batch = None
+        if getattr(controller, "supports_grouped", False):
+            batch = self._receiver_batch(
+                recv_rows, policy_surfaces, controller.sees_truth
+            )
+            names = batch.names
+        secs["batch_s"] = _time.perf_counter() - tp
+
+        tp = _time.perf_counter()
+        if batch is not None:
+            alloc = controller.allocate_grouped(batch, b)
+        else:
+            recv_nodes = t.views(recv_rows)
+            names = [n.app.name for n in recv_nodes]
+            recv_apps = [n.app for n in recv_nodes]
+            baselines = {n.app.name: n.caps for n in recv_nodes}
+            true_by_inst = {n.app.name: self._surface(n) for n in recv_nodes}
+            seen = (
+                policy_surfaces if policy_surfaces is not None else true_by_inst
+            )
+            if controller.sees_truth:
+                seen = true_by_inst
+            alloc = controller.allocate(recv_apps, baselines, b, seen)
+        secs["allocate_s"] = _time.perf_counter() - tp
+
+        tp = _time.perf_counter()
+        rng = self.round_rng(controller.policy, round_index)
+        new = np.array([alloc.caps[nm] for nm in names], dtype=np.float64)
+        t0, t1, imp = self._measure_rows(recv_rows, base, new, rng)
+        improvements = dict(zip(names, imp.tolist()))
+        self.last_telemetry = TelemetryBatch(
+            round=round_index,
+            inst_gids=t.name_gid[recv_rows],
+            app_gids=t.base_gid[recv_rows],
+            strings=t.strings,
+            baseline_caps=base,
+            allocated_caps=new,
+            t_baseline=t0,
+            t_allocated=t1,
+            improvement=imp,
+        )
+        secs["measure_s"] = _time.perf_counter() - tp
+        return EmulationResult(
+            policy=controller.policy,
+            improvements=improvements,
+            allocation=alloc,
+            budget=b,
+        )
+
+    def run(
+        self,
+        scenario: Scenario,
+        controller,
+        *,
+        policy_surfaces: Mapping[str, PowerSurface]
+        | Callable[["ClusterSim"], Mapping[str, PowerSurface]]
+        | None = None,
+    ) -> SimResult:
+        """Step a scenario: per round, apply events -> allocate -> measure
+        -> feed telemetry back to the controller.
+
+        ``controller`` is a Controller or a registered policy name (built
+        on this sim's device).  ``policy_surfaces`` may be a mapping or a
+        callable ``sim -> mapping`` re-evaluated each round.
+        """
+        if isinstance(controller, str):
+            from repro_torch.core import policies as policies_mod
+
+            controller = policies_mod.get_controller(
+                controller, self.system, device=self.device
+            )
+        records: list[RoundRecord] = []
+        for r in range(scenario.n_rounds):
+            events = scenario.events_at(r)
+            touched = self.apply_events(events) if events else []
+            if touched:
+                controller.invalidate(touched)
+            seen = (
+                policy_surfaces(self)
+                if callable(policy_surfaces)
+                else policy_surfaces
+            )
+            _, recv_rows, pool = self.partition_rows()
+            b = scenario.budget_at(r)
+            res = self.run_round(
+                controller,
+                budget=pool if b is None else b,
+                policy_surfaces=seen,
+                round_index=r,
+                _recv_rows=recv_rows,
+            )
+            records.append(
+                RoundRecord(
+                    round=r,
+                    result=res,
+                    pool=pool,
+                    n_alive=int(np.count_nonzero(self.table.alive)),
+                    events=events,
+                    power_price=scenario.price_at(r),
+                    carbon_intensity=scenario.carbon_at(r),
+                    telemetry=self.last_telemetry,
+                    seconds=dict(self.last_round_seconds),
+                )
+            )
+            controller.ingest_telemetry(self.last_telemetry)
+        return SimResult(policy=controller.policy, records=records)
