@@ -8,19 +8,29 @@ Run from the root of a copy of the repository (no build step, no network):
 Phases, each of which exits non-zero on failure before the last line:
 
  1. the card (``nvidia-smi`` name and power limit) and the versions;
- 2. build of the CUDA kernel from ``src/repro_torch/kernels/csrc`` (the
-    ``-Xptxas -v`` summary);
- 3. the (max,+) stage kernel against its plain PyTorch version on the
-    card, bitwise, at the main path's shapes, with times and bounds;
- 4. the main path: a 256-node SYSTEM_2 cluster for 4 rounds (pool budget,
-    one failure, one straggler) through ``ClusterSim.run`` under
+ 2. build of the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+    ``nvcc`` per source started together (the ``-Xptxas -v`` summaries);
+ 3. the dense (max,+) convolution kernel against its plain PyTorch version
+    on the card, bitwise, at the dense main path's shapes, with times and
+    bounds;
+ 4. the dense main path: a 256-node SYSTEM_2 cluster for 4 rounds (pool
+    budget, one failure, one straggler) through ``ClusterSim.run`` under
     ``solver="pallas"`` (the kernel) and ``solver="jax"`` (the plain
     version), bitwise equal round by round, with the kernel's launch count
     equal to the DP stages run, and round 0 held against the float64 numpy
     DP; then the device busy share of one round from ``torch.profiler``;
  5. one ungrouped round and one ``allocate_batch`` budget sweep, each held
     against its plain-version run;
- 6. one JSON line listing each ported kernel, then the result line.
+ 6. the sparse-option (max,+) stage kernel against its plain version on
+    the card, bitwise on values and backpointers, at the fused main path's
+    shapes (float64) and a ragged one (float64 and float32);
+ 7. the fused main path: the same scenario at 2048 nodes (the widest flat
+    grid the fused round takes) under the default EcoShift controller with
+    ``fused=True`` and with the default host sparse solver, bitwise equal
+    round by round, every solved round on the device with no fallback, and
+    the stage kernel launched once per padded stage of every fused round;
+    then the device busy share of one fused round;
+ 8. one JSON line listing each ported kernel, then the result line.
 
 It exits 2 without printing a result when no CUDA card is present or when
 the port's sources are not beside it.
@@ -39,9 +49,11 @@ SEED = 0
 N_NODES = 256
 N_ROUNDS = 4
 N_BUDGETS = 8  # budgets of the allocate_batch sweep
-# NVIDIA H100 SXM data sheet at its 700 W limit: float32 outside the tensor
-# cores, and HBM3 bandwidth
+N_NODES_FUSED = 2048  # the fused main path: S, K, NB pads 40, 1024, 4096
+# NVIDIA H100 SXM data sheet at its 700 W limit: float32 and float64
+# outside the tensor cores, and HBM3 bandwidth
 PEAK_F32_OPS = 67e12
+PEAK_F64_OPS = 34e12
 PEAK_BYTES = 3.35e12
 # round 0 of the kernel path against the float64 numpy DP: the float32 DP
 # sums ~200 values below 1, so its total may differ by ~200 ulp(100)
@@ -309,6 +321,217 @@ def variants_phase(dev, fresh_sim) -> int:
     return launches["maxplus_conv"]
 
 
+def _stage_bound_ms(rows: int, nb: int, k: int, itemsize: int) -> tuple[float, str]:
+    """Least time for one sparse-option stage: every (b, j) candidate is one
+    add and one compare in the stage's type; dp, kb, vb read once, out and
+    arg written once."""
+    ops = 2.0 * rows * nb * k
+    nbytes = rows * (itemsize * nb + (4 + itemsize) * k + (itemsize + 4) * nb)
+    peak = PEAK_F64_OPS if itemsize == 8 else PEAK_F32_OPS
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _sparse_stage_inputs(rows: int, nb: int, k: int, dtype, seed: int, dev):
+    """Seeded dp [rows, nb] on a 1/4 lattice (exact ties) with -inf holes
+    (an all -inf row when rows > 1); kb [rows, k] int32 descending in
+    [0, nb] (so kb > b occurs, and kb = nb); vb [rows, k] with -inf padded
+    option tails (kb = 0 there), as the fused round pads its banks."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dp = np.round(rng.uniform(0, 20, (rows, nb)) * 4) / 4
+    dp[rng.random((rows, nb)) < 0.2] = -np.inf
+    if rows > 1:
+        dp[1] = -np.inf
+    kb = np.sort(rng.integers(0, nb + 1, (rows, k)), axis=1)[:, ::-1].astype(np.int32)
+    kb[:, 0] = nb
+    vb = np.round(rng.uniform(0, 3, (rows, k)) * 4) / 4
+    vb[:, k - max(1, k // 5):] = -np.inf
+    kb[:, k - max(1, k // 5):] = 0
+    return (
+        torch.as_tensor(dp, dtype=dtype, device=dev),
+        torch.as_tensor(kb.copy(), device=dev),
+        torch.as_tensor(vb, dtype=dtype, device=dev),
+    )
+
+
+def stage_kernel_phase(dev) -> dict:
+    """Phase 6: the sparse-option stage kernel against its plain version,
+    bitwise on out and arg; returns the measured stats at the fused main
+    path's shape."""
+    import torch
+
+    from repro_torch.kernels import mckp_dp, ref
+
+    cases = [
+        ("fused main path, 2048 nodes", 1, 4096, 1024, torch.float64),
+        ("fused round at 256 nodes", 1, 512, 128, torch.float64),
+        ("ragged, ties, -inf padding", 3, 1037, 37, torch.float64),
+        ("ragged, ties, -inf padding", 3, 1037, 37, torch.float32),
+    ]
+    stats = {}
+    for i, (label, rows, nb, k, dtype) in enumerate(cases):
+        dp, kb, vb = _sparse_stage_inputs(rows, nb, k, dtype, SEED + 10 + i, dev)
+        out, arg = mckp_dp.maxplus_stage_batched(dp, kb, vb)
+        want_out, want_arg = ref.maxplus_stage_batched(dp, kb, vb)
+        check(
+            _bits_equal(out, want_out) and _bits_equal(arg, want_arg),
+            f"stage kernel != plain version for {label} {dtype}",
+        )
+        err = _max_abs_err(out, want_out)
+        ms = _cuda_ms(lambda: mckp_dp.maxplus_stage_batched(dp, kb, vb), iters=50)
+        plain_ms = _cuda_ms(lambda: ref.maxplus_stage_batched(dp, kb, vb), iters=5, warmup=1)
+        bound_ms, bound_by = _stage_bound_ms(rows, nb, k, dp.element_size())
+        print(
+            f"stage kernel {label}: rows={rows} nb={nb} k={k} {dtype} bitwise "
+            f"out+arg ok, max_abs_err={err} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}) roofline_share={bound_ms / ms:.4f} "
+            f"plain_over_kernel={plain_ms / ms:.1f} library_ms=null (no PyTorch "
+            f"call computes a sparse-option (max,+) stage)"
+        )
+        if i == 0:
+            stats = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+    return stats
+
+
+def _run_sparse(sim, scen, dev, fused: bool):
+    """One scenario under a fresh EcoShift controller on the default sparse
+    solver; returns (result, per-round log, controller, seconds).  The log
+    holds each round's last_solver and, for fused rounds, the bank pads,
+    the counters and the segments."""
+    import torch
+
+    from repro_torch.cluster import make_controller
+    from repro_torch.core import types
+
+    ctrl = make_controller("ecoshift", types.SYSTEM_2, fused=fused, device=dev)
+    log = []
+    inner = ctrl.allocate_grouped
+
+    def allocate_grouped(batch, budget):
+        alloc = inner(batch, budget)
+        entry = {"solver": ctrl.last_solver, "reason": ctrl.last_fallback_reason}
+        if ctrl.last_solver == "fused":
+            fs = ctrl._fused_state
+            s_pad, _, k_pad = fs.kb_dev.shape
+            entry.update(
+                s_pad=s_pad, k_pad=k_pad, nb_pad=fs.shape[4],
+                stats=ctrl.fused_stats(), segments=ctrl.fused_segments(),
+                device_s=ctrl.last_device_s,
+            )
+        log.append(entry)
+        return alloc
+
+    ctrl.allocate_grouped = allocate_grouped
+    t0 = time.perf_counter()
+    res = sim.run(scen, ctrl)
+    torch.cuda.synchronize()
+    return res, log, ctrl, time.perf_counter() - t0
+
+
+def fused_main_path_phase(dev, fresh_sim, scen) -> int:
+    """Phase 7; returns the stage kernel's launches on the fused main path."""
+    from repro_torch.kernels import mckp_dp
+
+    mckp_dp.reset_launches()
+    res_f, log_f, ctrl, wall_f = _run_sparse(fresh_sim(), scen, dev, fused=True)
+    launches = dict(mckp_dp.launches)
+    res_h, log_h, _, wall_h = _run_sparse(fresh_sim(), scen, dev, fused=False)
+    stats = ctrl.fused_stats()
+    pads = [e["s_pad"] for e in log_f if e["solver"] == "fused"]
+    print(
+        f"fused main path: {N_NODES_FUSED} nodes, {N_ROUNDS} rounds, "
+        f"launches={launches} fused_rounds={len(pads)} s_pads={pads} "
+        f"wall_s fused={wall_f:.4f} host={wall_h:.4f}"
+    )
+    check(_records_equal(res_f, res_h), "fused and host sparse rounds differ")
+    check(stats.fallbacks == 0, f"fused fallbacks: {stats}")
+    check(pads, "no round ran fused")
+    for e in log_f:
+        check(
+            e["solver"] in ("fused", "cache"),
+            f"a main-path round ran on {e['solver']!r} ({e['reason']!r})",
+        )
+    check(
+        launches["maxplus_stage_batched"] == sum(pads),
+        "stage launches != padded stages of the fused rounds",
+    )
+    check(launches["maxplus_conv_batched"] == launches["maxplus_conv"] == 0,
+          "the fused path launched a dense kernel")
+    for rf, rh, ef, eh in zip(res_f.records, res_h.records, log_f, log_h):
+        alloc = rf.result.allocation
+        budget = rf.result.budget
+        check(alloc.spent <= budget + 1e-9, f"fused round {rf.round} overspends")
+        imps = list(rf.result.improvements.values())
+        check(all(abs(x) < 1.0 for x in imps), f"fused round {rf.round}: bad improvement")
+        line = (
+            f"fused round {rf.round}: receivers={len(imps)} budget={budget!r} "
+            f"spent={alloc.spent!r} avg_improvement={alloc.predicted_improvement!r} "
+            f"solver={ef['solver']} host_solver={eh['solver']} "
+            f"fused round_s={sum(rf.seconds.values()):.4f} (allocate_s="
+            f"{rf.seconds['allocate_s']:.4f}) host round_s="
+            f"{sum(rh.seconds.values()):.4f} (allocate_s={rh.seconds['allocate_s']:.4f})"
+        )
+        if ef["solver"] == "fused":
+            st = ef["stats"]
+            line += (
+                f" pads S={ef['s_pad']} K={ef['k_pad']} NB={ef['nb_pad']} "
+                f"device_s={ef['device_s']:.6f} rebuilds={st.rebuilds} "
+                f"compactions={st.compactions} row_uploads={st.row_uploads} "
+                f"short_circuits={st.short_circuits} "
+                f"slack_utilization={st.slack_utilization:.4f} segments="
+                + json.dumps({k: round(v, 6) for k, v in ef["segments"].items()})
+            )
+        print(line)
+    print(f"fused stats: {stats}")
+    return launches["maxplus_stage_batched"]
+
+
+def fused_busy_share_phase(dev, fresh_sim) -> None:
+    """Device busy share of one warm fused round (banks resident, budget
+    moved by 25 W so the round solves), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cluster import make_controller
+    from repro_torch.core import types
+
+    sim = fresh_sim()
+    ctrl = make_controller("ecoshift", types.SYSTEM_2, fused=True, device=dev)
+    _, _, pool = sim.partition_rows()
+    sim.run_round(ctrl, budget=pool, round_index=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round(ctrl, budget=pool - 25.0, round_index=1)
+        wall = time.perf_counter() - t0
+    check(ctrl.last_solver == "fused", f"profiled round ran on {ctrl.last_solver!r}")
+    by_kernel: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_s = sum(by_kernel.values()) / 1e6
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    segs = json.dumps({k: round(v, 6) for k, v in ctrl.fused_segments().items()})
+    if device_s:
+        print(
+            f"profiled fused round: wall_s={wall:.4f} device_busy_s={device_s:.6f} "
+            f"busy_share={device_s / wall:.4f} segments={segs} "
+            f"round_seconds={json.dumps({k: round(v, 6) for k, v in sim.last_round_seconds.items()})} "
+            f"top_device_us_and_share="
+            + json.dumps(
+                {k[:60]: [round(v, 1), round(v / 1e6 / wall, 4)] for k, v in top}
+            )
+        )
+    else:
+        print(f"profiled fused round: wall_s={wall:.4f} busy_share=not measured "
+              "(the profiler recorded no device time)")
+
+
 def main() -> int:
     import torch
 
@@ -333,9 +556,10 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    log = mckp_dp.build()
-    print(f"build {mckp_dp.SOURCE.relative_to(ROOT)}: {time.perf_counter() - t0:.2f} s")
-    print(log.strip())
+    logs = mckp_dp.build()
+    print(f"build {len(logs)} sources in parallel: {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        print(f"{mckp_dp.SOURCES[name].relative_to(ROOT)}:\n{log.strip()}")
 
     apps, surfs = surfaces.build_paper_suite(types.SYSTEM_2)
 
@@ -358,16 +582,39 @@ def main() -> int:
     busy_share_phase(dev, fresh_sim)
     launches["maxplus_conv"] = variants_phase(dev, fresh_sim)
 
-    source = str(mckp_dp.SOURCE.relative_to(ROOT))
+    stats["maxplus_stage_batched"] = stage_kernel_phase(dev)
+
+    def fresh_fused_sim():
+        return ClusterSim.build(
+            types.SYSTEM_2, apps, surfs, n_nodes=N_NODES_FUSED, seed=SEED, device=dev
+        )
+
+    _, recv_f, pool_f = fresh_fused_sim().partition()
+    print(f"fused cluster: {N_NODES_FUSED} nodes, {len(recv_f)} receivers, pool {pool_f!r} W")
+    scen_f = (
+        Scenario.constant(N_ROUNDS)
+        .with_failure(1, recv_f[0].node_id)
+        .with_straggler(2, recv_f[1].node_id, 1.8)
+    )
+    launches["maxplus_stage_batched"] = fused_main_path_phase(dev, fresh_fused_sim, scen_f)
+    fused_busy_share_phase(dev, fresh_fused_sim)
+
+    sources = {
+        "maxplus_conv_batched": "maxplus_conv",
+        "maxplus_conv": "maxplus_conv",
+        "maxplus_stage_batched": "maxplus_stage",
+    }
     replaces = {
         "maxplus_conv_batched": "src/repro/kernels/mckp_dp.py:194",
         "maxplus_conv": "src/repro/kernels/mckp_dp.py:247",
+        "maxplus_stage_batched": "src/repro/kernels/mckp_dp.py:126",
     }
     kernels = []
-    for name in ("maxplus_conv_batched", "maxplus_conv"):
+    for name in ("maxplus_conv_batched", "maxplus_conv", "maxplus_stage_batched"):
         check(launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda",
+            "source": str(mckp_dp.SOURCES[sources[name]].relative_to(ROOT)),
             "replaces": replaces[name], "launches": launches[name],
             **stats[name], "library_ms": None,
         })

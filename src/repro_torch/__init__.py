@@ -6,8 +6,9 @@ the port's tests hold each module against it bit for bit.
 
 Entry points run on a CUDA card unless the caller passes
 ``device="cpu"``: ``device=None`` resolves to ``cuda`` and raises when no
-card is present (:func:`repro_torch.device.resolve_device`).  The dense
-(max,+) DP stage runs as a hand-written CUDA kernel
-(``kernels/csrc/maxplus_conv.cu``) on CUDA tensors and as its plain
-PyTorch version on CPU tensors.
+card is present (:func:`repro_torch.device.resolve_device`).  The DP
+stages run as hand-written CUDA kernels on CUDA tensors and as their plain
+PyTorch versions on CPU tensors: the dense (max,+) convolution
+(``kernels/csrc/maxplus_conv.cu``) and the fused round's sparse-option
+stage (``kernels/csrc/maxplus_stage.cu``).
 """

@@ -1,24 +1,32 @@
 """Stateful policy controllers for the multi-round cluster engine.
 
-The EcoShift controller on the dense solvers: it caches per-receiver and
-per-behaviour-class ``OptionTable``s across rounds (tables are built to
-the grid's headroom ceiling, so they are budget-independent and survive a
-changing pool) and solves each round with ``solver``:
+The EcoShift controller: it caches per-receiver and per-behaviour-class
+``OptionTable``s across rounds (tables are built to the grid's headroom
+ceiling, so they are budget-independent and survive a changing pool) and
+solves each round with ``solver``:
 
+ * ``"sparse"`` (the default) — the host sparse solvers.  On
+   engine-sequenced batches the round is incremental: the behaviour-class
+   grouping follows the batch deltas, the solve reuses content-keyed
+   curve/pick/plan caches, and an unchanged round returns its cached
+   ``Allocation``.  With ``fused=True`` the incremental round runs on the
+   device (``mckp.solve_grouped_fused``: resident option banks, one
+   sparse-option stage kernel launch per padded stage) and routes to the
+   host only for the reference's fallback reasons, which
+   ``last_solver``/``last_fallback_reason``/``fused_stats()`` report;
  * ``"pallas"`` — the dense DP with every (max,+) stage on the hand-written
    CUDA kernel (its plain PyTorch version for a CPU ``device``);
- * ``"jax"`` — the same DP on the plain PyTorch version;
- * ``"dense"`` — the numpy DP.
+ * ``"jax"`` — the same dense DP on the plain PyTorch version;
+ * ``"dense"`` — the numpy dense DP.
 
-The names are the reference's.  ``solver="sparse"`` (the reference's and
-this config's default, the host sparse solvers, which carry the
-incremental path), the fused device round, receding-horizon (MPC) planning, the
+The names are the reference's.  Receding-horizon (MPC) planning, the
 hierarchical controller and the fault paths (NACK pins, snapshots) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Mapping, Sequence
 
@@ -32,6 +40,7 @@ from repro_torch.core.surfaces import PowerSurface
 from repro_torch.core.types import (
     Allocation,
     AppSpec,
+    FusedRoundStats,
     ReceiverBatch,
     SystemSpec,
     as_receiver_order,
@@ -89,16 +98,19 @@ class Controller:
 class ControllerConfig:
     """Construction config of the EcoShift controller.
 
-    The defaults are the reference's.  ``fused=True`` and ``horizon > 1``
-    select paths that are not ported yet and raise; the reference's
-    ``incremental`` path belongs to the sparse solver, which raises too.
-    ``device`` is where the ``"jax"``/``"pallas"`` stages run (None = the
-    CUDA card).
+    The defaults are the reference's.  ``horizon > 1`` selects receding-
+    horizon planning, which is not ported yet and raises.  ``device`` is
+    where the fused round and the ``"jax"``/``"pallas"`` stages run (None =
+    the CUDA card).
     """
 
     solver: str = "sparse"
     unit: float = 1.0
     grouped: bool = True
+    #: delta-driven steady-state rounds on engine-sequenced batches
+    #: (sparse solver only)
+    incremental: bool = True
+    #: device-resident fused rounds (incremental sparse path only)
     fused: bool = False
     #: receding-horizon plan length in rounds (1 = myopic)
     horizon: int = 1
@@ -111,20 +123,167 @@ class ControllerConfig:
         return dataclasses.replace(self, **changes) if changes else self
 
 
+class _ClassRec:
+    """One live behaviour class inside a :class:`_GroupingState` scope."""
+
+    __slots__ = ("surf", "members", "table", "group")
+
+    def __init__(self, surf, table):
+        self.surf = surf
+        #: name-sorted member list, maintained incrementally
+        self.members: list[str] = []
+        self.table = table
+        #: lazily rebuilt frozen GroupedOptions (None = members moved)
+        self.group = None
+
+
+class _GroupingState:
+    """Persistent behaviour-class grouping, updated by batch deltas.
+
+    Mirrors ``mckp.collapse_receivers`` — receivers sharing (surface
+    identity, baseline) form one class — but *across rounds*: the engine's
+    :class:`~repro_torch.core.types.ReceiverBatch` delta contract names exactly
+    the positions whose surface/baseline moved and the receivers that
+    left, so a steady-state round updates O(churn) classes instead of
+    re-collapsing the whole cluster.  ``scope`` partitions classes (leaf
+    power-domain id on the hierarchical path, 0 on the flat path).
+    Unchanged scopes keep their frozen ``GroupedOptions`` tuples — object
+    identity downstream caches (plans, leaf solutions) key on.
+    """
+
+    __slots__ = ("seq", "scopes", "of_name", "_groups_cache")
+
+    def __init__(self):
+        #: batch seq this state mirrors (None = never built)
+        self.seq: int | None = None
+        self.scopes: dict[int, dict[tuple, _ClassRec]] = {}
+        self.of_name: dict[str, tuple[int, tuple]] = {}
+        self._groups_cache: dict[int, tuple] = {}
+
+    def reset(self) -> None:
+        self.seq = None
+        self.scopes.clear()
+        self.of_name.clear()
+        self._groups_cache.clear()
+
+    def sync(self, batch, leaf_ids, table_for) -> None:
+        """Bring the grouping in line with ``batch`` (delta or rebuild)."""
+        if batch.seq == self.seq and self.seq is not None:
+            return
+        if (
+            batch.prev_seq is not None
+            and batch.prev_seq == self.seq
+            and batch.delta is not None
+        ):
+            for name in batch.removed:
+                self._remove(name)
+            for pos in batch.delta:
+                self._place(batch, pos, leaf_ids, table_for)
+            self.seq = batch.seq
+            return
+        self._rebuild(batch, leaf_ids, table_for)
+        self.seq = batch.seq
+
+    def _rebuild(self, batch, leaf_ids, table_for) -> None:
+        self.scopes.clear()
+        self.of_name.clear()
+        self._groups_cache.clear()
+        scopes = (
+            leaf_ids.tolist() if leaf_ids is not None else [0] * len(batch)
+        )
+        bl = batch.baselines.tolist()
+        for name, surf, base, scope in zip(
+            batch.names, batch.surfaces, bl, scopes
+        ):
+            base = (base[0], base[1])
+            ckey = (id(surf), base)
+            recs = self.scopes.setdefault(scope, {})
+            rec = recs.get(ckey)
+            if rec is None or rec.surf is not surf:
+                rec = _ClassRec(surf, table_for(surf, base))
+                recs[ckey] = rec
+            rec.members.append(name)
+            self.of_name[name] = (scope, ckey)
+        for recs in self.scopes.values():
+            for rec in recs.values():
+                rec.members.sort()
+
+    def _place(self, batch, pos, leaf_ids, table_for) -> None:
+        name = batch.names[pos]
+        surf = batch.surfaces[pos]
+        b = batch.baselines[pos]
+        base = (float(b[0]), float(b[1]))
+        scope = int(leaf_ids[pos]) if leaf_ids is not None else 0
+        ckey = (id(surf), base)
+        old = self.of_name.get(name)
+        if old is not None:
+            oscope, ockey = old
+            if oscope == scope and ockey == ckey:
+                rec = self.scopes[scope][ckey]
+                if rec.surf is surf:
+                    return  # nothing actually moved
+            self._remove(name)
+        recs = self.scopes.setdefault(scope, {})
+        rec = recs.get(ckey)
+        if rec is None or rec.surf is not surf:
+            rec = _ClassRec(surf, table_for(surf, base))
+            recs[ckey] = rec
+        bisect.insort(rec.members, name)
+        rec.group = None
+        self.of_name[name] = (scope, ckey)
+        self._groups_cache.pop(scope, None)
+
+    def _remove(self, name: str) -> None:
+        loc = self.of_name.pop(name, None)
+        if loc is None:
+            return
+        scope, ckey = loc
+        rec = self.scopes[scope][ckey]
+        i = bisect.bisect_left(rec.members, name)
+        if i < len(rec.members) and rec.members[i] == name:
+            del rec.members[i]
+        rec.group = None
+        if not rec.members:
+            del self.scopes[scope][ckey]
+        self._groups_cache.pop(scope, None)
+
+    def groups(self, scope: int) -> tuple:
+        """Frozen GroupedOptions of one scope (tuple reused while clean)."""
+        g = self._groups_cache.get(scope)
+        if g is None:
+            out = []
+            for rec in self.scopes.get(scope, {}).values():
+                if rec.group is None:
+                    rec.group = mckp.GroupedOptions(
+                        table=rec.table, members=tuple(rec.members)
+                    )
+                out.append(rec.group)
+            g = tuple(out)
+            self._groups_cache[scope] = g
+        return g
+
+
 class _OptionCachingController(Controller):
     """Warm ``OptionTable`` caches for the DP-based policies.
 
-    Two layers: per-instance tables keyed by name (the ungrouped path), and
-    group tables keyed by (surface identity, baseline), one per behaviour
-    class.  Keys are identity based, so a straggler or phase change swaps
-    the surface object and the stale entry stops matching.  Tables are
-    built to the grid headroom ceiling: every solver skips options costing
-    more than the round budget.
+    Two table layers: per-instance tables keyed by name (the ungrouped
+    path), and group tables keyed by (surface identity, baseline), one per
+    behaviour class.  Keys are identity based, so a straggler or phase
+    change swaps the surface object and the stale entry stops matching.
+    Tables are built to the grid headroom ceiling: every solver skips
+    options costing more than the round budget.  Beside them, the sparse
+    solvers' content-keyed caches (aggregate curves, doubling chains, pick
+    multisets, merged-class plans), the whole-``Allocation`` cache of the
+    incremental path and the delta-maintained class grouping.  Every cache
+    is a bounded LRU: an eviction recomputes, it never changes a result.
     """
 
-    #: bound of the group-table cache (oldest entry evicted first; an
-    #: eviction only rebuilds a table, it never changes a result)
+    #: LRU bounds of the warm caches
     MAX_GROUP_TABLES = 512
+    MAX_AGG_CURVES = 8192
+    MAX_PICKS = 16384
+    MAX_PLANS = 256
+    MAX_ALLOCATIONS = 8
 
     def __init__(self, system: SystemSpec):
         super().__init__(system)
@@ -133,12 +292,30 @@ class _OptionCachingController(Controller):
             str, tuple[tuple[float, float], PowerSurface, OptionTable]
         ] = {}
         #: (id(surface), baseline) -> (surface, table)
-        self._group_tables: dict[tuple, tuple[PowerSurface, OptionTable]] = {}
+        self._group_tables = mckp.LRUCache(self.MAX_GROUP_TABLES)
+        #: (table digest, multiplicity, budget) -> aggregate sparse curve
+        self._agg_curves = mckp.LRUCache(self.MAX_AGG_CURVES)
+        #: (digest, budget) -> doubling chain (shielded from (d, m) churn)
+        self._chain_cache = mckp.LRUCache(512)
+        #: (curve key, spend) -> unwound pick multiset
+        self._pick_cache = mckp.LRUCache(self.MAX_PICKS)
+        #: group-token tuple -> merged-class plan
+        self._plan_cache = mckp.LRUCache(self.MAX_PLANS)
+        #: (group tokens, budget) -> warm Allocation
+        self._alloc_cache = mckp.LRUCache(self.MAX_ALLOCATIONS)
+        #: delta-maintained behaviour-class grouping
+        self._grouping = _GroupingState()
 
     def invalidate(self, names: Sequence[str] | None = None) -> None:
         if names is None:
             self._options.clear()
             self._group_tables.clear()
+            self._agg_curves.clear()
+            self._chain_cache.clear()
+            self._pick_cache.clear()
+            self._plan_cache.clear()
+            self._alloc_cache.clear()
+            self._grouping.reset()
         else:
             for n in names:
                 self._options.pop(n, None)
@@ -173,8 +350,6 @@ class _OptionCachingController(Controller):
             return hit[1]
         table = curves.build_options("class", surf, base, self.system.grid, np.inf)
         self._group_tables[key] = (surf, table)
-        if len(self._group_tables) > self.MAX_GROUP_TABLES:
-            del self._group_tables[next(iter(self._group_tables))]
         return table
 
 
@@ -192,24 +367,18 @@ class EcoShiftController(_OptionCachingController):
         solver: str | None = None,
         unit: float | None = None,
         grouped: bool | None = None,
+        incremental: bool | None = None,
         fused: bool | None = None,
         horizon: int | None = None,
         device: str | torch.device | None = None,
     ):
         super().__init__(system)
         cfg = (config if config is not None else ControllerConfig()).merged(
-            solver=solver, unit=unit, grouped=grouped, fused=fused,
-            horizon=horizon, device=device,
+            solver=solver, unit=unit, grouped=grouped, incremental=incremental,
+            fused=fused, horizon=horizon, device=device,
         )
-        if cfg.solver == "sparse":
-            raise NotImplementedError(mckp.SPARSE_NOT_PORTED)
-        if cfg.solver not in ("dense", "jax", "pallas"):
+        if cfg.solver not in ("sparse", "dense", "jax", "pallas"):
             raise ValueError(f"unknown solver {cfg.solver!r}")
-        if cfg.fused:
-            raise NotImplementedError(
-                "fused=True (the device-resident fused round) is not ported "
-                "yet: ROADMAP.md, queue 1, item 2"
-            )
         if cfg.horizon > 1:
             raise NotImplementedError(
                 "horizon > 1 (receding-horizon MPC planning) is not ported "
@@ -222,13 +391,65 @@ class EcoShiftController(_OptionCachingController):
         #: group-collapsed allocation (one behaviour class per shared
         #: table); False takes the per-instance path
         self.grouped = cfg.grouped
+        #: delta-driven steady-state rounds (sparse solver, engine-
+        #: sequenced batches); False re-collapses and re-solves every round
+        self.incremental = cfg.incremental
+        #: device-resident fused rounds on the incremental sparse path
+        #: (ignored elsewhere, as in the reference)
+        self.fused = cfg.fused
         self.device = resolve_device(cfg.device)
+        #: resident device banks + capacity-slack layout for fused rounds
+        self._fused_state = mckp.FusedState()
+        #: 'fused' | 'host' | 'cache' — which path produced the last
+        #: grouped solution
+        self.last_solver: str | None = None
+        #: why the last fused attempt routed to host ("" when it stayed
+        #: fused, was not attempted, or hit the allocation cache)
+        self.last_fallback_reason: str = ""
+        #: device seconds inside the last fused round (0.0 for host rounds
+        #: and allocation-cache hits)
+        self.last_device_s: float = 0.0
+
+    def invalidate(self, names: Sequence[str] | None = None) -> None:
+        super().invalidate(names)
+        if names is None:
+            self._fused_state.clear()
 
     @property
     def supports_grouped(self) -> bool:  # type: ignore[override]
         return self.grouped
 
+    def fused_stats(self) -> FusedRoundStats:
+        """Snapshot of the device-resident round counters."""
+        return FusedRoundStats(**self._fused_state.stats)
+
+    def fused_segments(self) -> dict:
+        """Last fused round's wall-clock split (seconds): prep_s / patch_s /
+        compact_s / dispatch_s / backtrack_s / assembly_s.  Empty until a
+        fused round has been attempted."""
+        return dict(self._fused_state.last_segments)
+
+    def _try_fused_grouped(self, groups, budget) -> mckp.MCKPSolution | None:
+        """One fused-round attempt; returns None to use the host path.
+        Kernel build or launch errors propagate."""
+        fstate = self._fused_state
+        d0 = fstate.stats["device_s"]
+        sol = mckp.solve_grouped_fused(
+            groups,
+            budget,
+            fstate=fstate,
+            curve_cache=self._agg_curves,
+            pick_cache=self._pick_cache,
+            plan_cache=self._plan_cache,
+            chain_cache=self._chain_cache,
+            device=self.device,
+        )
+        self.last_device_s = fstate.stats["device_s"] - d0
+        return sol
+
     def _solve(self, options, budget) -> mckp.MCKPSolution:
+        if self.solver == "sparse":
+            return mckp.solve_sparse(options, budget)
         if self.solver == "dense":
             return mckp.solve_dense(options, budget, unit=self.unit)
         return mckp.solve_dense_jax(
@@ -246,17 +467,66 @@ class EcoShiftController(_OptionCachingController):
     def allocate_grouped(self, batch: ReceiverBatch, budget: float) -> Allocation:
         """Group-collapsed round: receivers sharing (surface identity,
         baseline) solve as one behaviour class; bitwise equal to
-        :meth:`allocate` on the same receivers."""
-        groups = mckp.collapse_receivers(
-            batch.names, batch.surfaces, batch.baselines, self._group_table
+        :meth:`allocate` on the same receivers.
+
+        On the incremental path (sparse solver, engine-sequenced batches)
+        the grouping follows the batch deltas, the solve reuses the
+        content-keyed caches, and a round whose classes and budget are
+        unchanged returns the cached Allocation (``last_solver = "cache"``).
+        With ``fused=True`` the solve runs on the device; a round the
+        fused path declines runs on the host with ``last_solver = "host"``
+        and ``last_fallback_reason`` set."""
+        incremental = (
+            self.incremental
+            and self.solver == "sparse"
+            and getattr(batch, "seq", 0) != 0
         )
-        sol = mckp.solve_grouped(
-            groups, budget, solver=self.solver, unit=self.unit,
-            device=self.device,
-        )
-        return policies_mod.allocation_from_solution(
+        if incremental:
+            self._grouping.sync(batch, None, self._group_table)
+            groups = self._grouping.groups(0)
+            key = (
+                tuple(sorted(mckp._group_token(g) for g in groups)),
+                mckp._qkey(budget),
+            )
+            hit = self._alloc_cache.get(key)
+            if hit is not None:
+                self.last_solver = "cache"
+                self.last_device_s = 0.0
+                self.last_fallback_reason = ""
+                return hit
+        else:
+            groups = mckp.collapse_receivers(
+                batch.names, batch.surfaces, batch.baselines, self._group_table
+            )
+            key = None
+        sol = None
+        self.last_device_s = 0.0
+        self.last_fallback_reason = ""
+        if incremental and self.fused:
+            sol = self._try_fused_grouped(groups, budget)
+            if sol is None:
+                self.last_fallback_reason = self._fused_state.stats[
+                    "fallback_reason"
+                ]
+        self.last_solver = "fused" if sol is not None else "host"
+        if sol is None:
+            sol = mckp.solve_grouped(
+                groups,
+                budget,
+                solver=self.solver,
+                unit=self.unit,
+                curve_cache=self._agg_curves,
+                pick_cache=self._pick_cache if incremental else None,
+                plan_cache=self._plan_cache if incremental else None,
+                chain_cache=self._chain_cache if incremental else None,
+                device=self.device,
+            )
+        alloc = policies_mod.allocation_from_solution(
             sol, batch.baselines_map(), budget, self.system.grid
         )
+        if key is not None:
+            self._alloc_cache[key] = alloc
+        return alloc
 
     def allocate_hierarchical(self, batch, budget, domain_extra):
         raise NotImplementedError(

@@ -14,12 +14,20 @@ the same RNG stream as ``repro.cluster.sim``, so every record is bitwise
 the reference's.  The engine itself is numpy on the host; the controller's
 solver runs on the sim's ``device`` (None = the CUDA card).
 
+The table logs the rows each mutation dirties (``NodeTable.bump`` /
+``dirty_since``), and the engine hands grouped controllers copy-on-write
+receiver batches under the reference's delta contract (``seq``,
+``prev_seq``, ``delta``, ``removed``): an event-free round gets the
+previous batch object back, and a round whose dirty rows the log bounds
+gets a patched batch naming the changed positions.  That is what the
+incremental controller's grouping and allocation cache key on.
+
 Not ported yet (ROADMAP.md, queue 1, item 5): power topologies with their
 per-domain accounting, the fault-injection actuation and PowerGuard path,
 receding-horizon budget outlooks, and the device-resident ``DeviceView``
-of the node columns.  The reference's round-over-round caches (natural
-draws, partitions, receiver-batch deltas, baseline runtimes) are left out:
-they speed up the host side and never change a result.
+of the node columns.  The reference's natural-draw and baseline-runtime
+caches are left out: they speed up the host side and never change a
+result.
 """
 
 from __future__ import annotations
@@ -107,6 +115,11 @@ class _Interner:
         return self.strings[i]
 
 
+#: dirty-row log horizon: consumers lagging more than this many bumps
+#: behind fall back to a full rebuild
+_DIRTY_HORIZON = 64
+
+
 class NodeTable:
     """Struct-of-arrays cluster node state.
 
@@ -116,6 +129,11 @@ class NodeTable:
     ``name_gid`` (instance name) and ``sclass_gid``, all indexing the shared
     :class:`_Interner`, and ``domain_id`` (-1: no topology).  Rows are
     append-only (failures flip ``alive``).
+
+    **Delta tracking**: every mutation through the engine bumps ``version``
+    and logs the rows it touched; consumers remember the version they last
+    materialized against and ask :meth:`dirty_since` for exactly the rows
+    that moved.  A coarse ``bump()`` (no rows) marks everything dirty.
     """
 
     def __init__(self):
@@ -130,6 +148,9 @@ class NodeTable:
         self.sclass_gid = np.empty(0, dtype=np.int32)
         self.domain_id = np.empty(0, dtype=np.int32)
         self.names: list[str] = []
+        self.version = 0
+        #: (version, dirty row array | None-for-everything) ring
+        self._dirty_log: list[tuple[int, np.ndarray | None]] = []
 
     def __len__(self) -> int:
         return len(self.node_ids)
@@ -137,6 +158,38 @@ class NodeTable:
     @property
     def strings(self) -> list[str]:
         return self.interner.strings
+
+    def bump(self, rows: Sequence[int] | np.ndarray | None = None) -> None:
+        """Advance ``version``; ``rows`` are the row indices this mutation
+        touched (``None`` marks the whole table dirty)."""
+        self.version += 1
+        if rows is not None:
+            rows = np.asarray(rows, dtype=np.int64)
+        self._dirty_log.append((self.version, rows))
+        if len(self._dirty_log) > _DIRTY_HORIZON:
+            del self._dirty_log[: len(self._dirty_log) - _DIRTY_HORIZON]
+
+    def dirty_since(self, version: int) -> np.ndarray | None:
+        """Rows dirtied in ``(version, self.version]``, or None when the
+        log can't prove a bound (horizon exceeded, unbounded bump, or a
+        ``version`` this table never issued)."""
+        if version == self.version:
+            return np.empty(0, dtype=np.int64)
+        if version > self.version:
+            return None
+        log = self._dirty_log
+        if not log or log[0][0] > version + 1:
+            return None
+        parts = []
+        for v, rows in log:
+            if v <= version:
+                continue
+            if rows is None:
+                return None
+            parts.append(rows)
+        if not parts:
+            return None
+        return np.unique(np.concatenate(parts))
 
     @staticmethod
     def from_nodes(nodes: Sequence[NodeState]) -> "NodeTable":
@@ -330,6 +383,15 @@ class ClusterSim:
         #: memoized straggler views: stable object identity per (app,
         #: slowdown), so identity-keyed option caches stay warm
         self._slowed: dict = {}
+        #: memoized partition per (table, version, natural draws): stable
+        #: row-array objects double as identity tokens for the batch and
+        #: measurement-group caches
+        self._part_cache: tuple | None = None
+        #: memoized (base surface, slowdown) grouping per (table, version,
+        #: rows)
+        self._measure_groups_cache: tuple | None = None
+        #: receiver-batch cache: (table, version, rows, batch)
+        self._batch_cache: tuple | None = None
         #: telemetry emitted by the latest round
         self.last_telemetry: object = ()
         #: host-clock seconds of the latest round's phases
@@ -400,19 +462,26 @@ class ClusterSim:
 
         A node donates iff its natural draw sits below its caps on both
         components (margin 1 W); a dead node donates its entire cap
-        allotment.
+        allotment.  Memoized per (table, version, natural draws): unchanged
+        rounds return the *same* row-array objects, which the receiver
+        batch and measurement caches use as identity tokens.
         """
         t = self.table
         if not len(t):
             z = np.empty(0, dtype=np.int64)
             return z, z, 0.0
         nat = self._natural_draws()
+        c = self._part_cache
+        if c is not None and c[0] is t and c[1] == t.version and np.array_equal(c[2], nat):
+            return c[3:]
         slack = t.caps - nat
         donor = t.alive & (slack[:, 0] > 1.0) & (slack[:, 1] > 1.0)
         recv = t.alive & ~donor
         dead = ~t.alive
         pool = float(t.caps[dead].sum() + (t.caps - nat)[donor].sum())
-        return np.flatnonzero(donor), np.flatnonzero(recv), pool
+        out = (np.flatnonzero(donor), np.flatnonzero(recv), pool)
+        self._part_cache = (t, t.version, nat, *out)
+        return out
 
     def partition(self) -> tuple[list[NodeState], list[NodeState], float]:
         """(donors, receivers, reclaimed_pool) as NodeState views."""
@@ -424,9 +493,10 @@ class ClusterSim:
     def apply_events(self, events: Sequence) -> list[str]:
         """Apply one round's scenario events to the table's columns in
         order (later events see earlier ones); returns affected instance
-        names."""
+        names.  The rows each event touched are logged as one table bump."""
         t = self.table
         touched: list[str] = []
+        dirty: list[np.ndarray] = []
         for event in events:
             if isinstance(event, scenario_mod.NodeFailure):
                 rows = np.flatnonzero(
@@ -434,10 +504,12 @@ class ClusterSim:
                 )
                 touched.extend(t.names[r] for r in rows)
                 t.alive[rows] = False
+                dirty.append(rows)
             elif isinstance(event, scenario_mod.StragglerOnset):
                 rows = np.flatnonzero(t.node_ids == event.node_id)
                 t.slowdown[rows] = event.slowdown
                 touched.extend(t.names[r] for r in rows)
+                dirty.append(rows)
             elif isinstance(event, scenario_mod.PhaseChange):
                 if event.surface_id not in self.surfaces:
                     raise KeyError(f"unknown surface {event.surface_id!r}")
@@ -446,6 +518,7 @@ class ClusterSim:
                 t.base_gid[rows] = gid
                 t.sid_gid[rows] = gid
                 touched.extend(t.names[r] for r in rows)
+                dirty.append(rows)
             elif isinstance(event, scenario_mod.NodeArrival):
                 if event.surface is not None:
                     self.surfaces = {
@@ -465,10 +538,17 @@ class ClusterSim:
                     sclass=event.app.sclass,
                     caps=caps,
                 )
+                dirty.append(np.array([len(t) - 1], dtype=np.int64))
             else:
                 raise TypeError(
                     f"unknown event type {type(event).__name__!r}: {event!r}"
                 )
+        rows = (
+            np.unique(np.concatenate(dirty))
+            if dirty
+            else np.empty(0, dtype=np.int64)
+        )
+        t.bump(rows)
         return touched
 
     # -- measurement ----------------------------------------------------------
@@ -476,8 +556,13 @@ class ClusterSim:
     def _measure_groups(self, rows: np.ndarray):
         """Distinct (base surface, slowdown) classes among ``rows`` as
         (gid, slowdown, member positions into ``rows``) triples, in
-        (gid, slowdown) order."""
+        (gid, slowdown) order.  Memoized per (table, version, rows object):
+        the batch freshness probe, the surface fill and the measurement
+        share one grouping per round."""
         t = self.table
+        c = self._measure_groups_cache
+        if c is not None and c[0] is t and c[1] == t.version and c[2] is rows:
+            return c[3]
         sl = t.slowdown[rows]
         uniq_s, s_rank = np.unique(sl, return_inverse=True)
         key = t.base_gid[rows].astype(np.int64) * len(uniq_s) + s_rank
@@ -486,10 +571,12 @@ class ClusterSim:
         counts = np.bincount(inv, minlength=len(uniq))
         splits = np.split(order, np.cumsum(counts)[:-1])
         ns = len(uniq_s)
-        return [
+        groups = [
             (int(uniq[k] // ns), float(uniq_s[uniq[k] % ns]), splits[k])
             for k in range(len(uniq))
         ]
+        self._measure_groups_cache = (t, t.version, rows, groups)
+        return groups
 
     def _measure_rows(
         self,
@@ -538,31 +625,141 @@ class ClusterSim:
             + round_index * _ROUND_STRIDE
         )
 
+    def _fill_true_surfaces(self, rows: np.ndarray, surfaces: list) -> None:
+        strings = self.table.strings
+        for gid, slowdown, ii in self._measure_groups(rows):
+            surf = self._surface_of(strings[gid], slowdown)
+            for i in ii:
+                surfaces[i] = surf
+
+    @staticmethod
+    def _rows_ascending(rows: np.ndarray) -> bool:
+        """The delta-patched batch position-matches rows via searchsorted /
+        setdiff1d, which need ascending (partition-ordered) row arrays;
+        explicit ``run_round(receivers=...)`` callers may pass any order
+        and then get a full rebuild."""
+        return len(rows) < 2 or bool(np.all(rows[1:] > rows[:-1]))
+
+    def _batch_surfaces_fresh(self, rows: np.ndarray, batch) -> bool:
+        """One identity probe per (surface, slowdown) class: catches true
+        surfaces swapped without a table bump (direct reassignment)."""
+        strings = self.table.strings
+        for gid, slowdown, ii in self._measure_groups(rows):
+            if batch.surfaces[ii[0]] is not self._surface_of(
+                strings[gid], slowdown
+            ):
+                return False
+        return True
+
+    def _patch_batch(self, c: tuple, rows: np.ndarray) -> ReceiverBatch | None:
+        """Derive this round's true-surface batch from the cached one (built
+        on the same table), or None to force a full rebuild.
+
+        In order: the cached batch comes back unchanged when nothing moved
+        (same version, same rows object, surfaces still identity-fresh); a
+        copy-on-write patched batch carrying the delta contract comes back
+        when the dirty-row log bounds what changed and the patched surfaces
+        probe fresh; otherwise None — unbounded change, non-partition row
+        order, or a surface swapped without dirtying its rows (e.g. a
+        NodeArrival re-registering an app's ground truth).
+        """
+        t = self.table
+        _, c_version, c_rows, c_batch = c
+        if c_version == t.version and c_rows is rows:
+            if self._batch_surfaces_fresh(rows, c_batch):
+                return c_batch
+            return None  # surfaces swapped underneath: rebuild
+        dirty = t.dirty_since(c_version)
+        if (
+            dirty is None
+            or not self._rows_ascending(rows)
+            or not self._rows_ascending(c_rows)
+        ):
+            return None
+        joined = np.setdiff1d(rows, c_rows, assume_unique=True)
+        left = np.setdiff1d(c_rows, rows, assume_unique=True)
+        changed = np.union1d(
+            np.intersect1d(dirty, rows, assume_unique=False), joined
+        )
+        pos = np.searchsorted(rows, changed)
+        strings = t.strings
+        surfaces = list(c_batch.surfaces)
+        if len(joined) or len(left):
+            # membership moved: carry surviving surfaces over by row id,
+            # rebuild the positional columns
+            names = [t.names[r] for r in rows]
+            surface_ids = [strings[t.sid_gid[r]] for r in rows]
+            common = np.setdiff1d(rows, joined, assume_unique=True)
+            sarr = np.empty(len(rows), dtype=object)
+            old = np.array(c_batch.surfaces, dtype=object)
+            sarr[np.searchsorted(rows, common)] = old[
+                np.searchsorted(c_rows, common)
+            ]
+            surfaces = sarr.tolist()
+        else:
+            names = list(c_batch.names)
+            surface_ids = list(c_batch.surface_ids)
+            for p in pos:
+                surface_ids[p] = strings[t.sid_gid[rows[p]]]
+        for p in pos:
+            r = rows[p]
+            surfaces[p] = self._surface_of(
+                strings[t.base_gid[r]], float(t.slowdown[r])
+            )
+        batch = ReceiverBatch(
+            names=names,
+            surface_ids=surface_ids,
+            baselines=t.caps[rows],
+            surfaces=surfaces,
+            seq=next(_BATCH_SEQ),
+            prev_seq=c_batch.seq,
+            delta=tuple(int(p) for p in pos),
+            removed=tuple(t.names[r] for r in left),
+        )
+        if not self._batch_surfaces_fresh(rows, batch):
+            return None
+        self._batch_cache = (t, t.version, rows, batch)
+        return batch
+
     def _receiver_batch(
         self,
         rows: np.ndarray,
         policy_surfaces: Mapping[str, PowerSurface] | None,
         sees_truth: bool,
     ) -> ReceiverBatch:
-        """Columnar receiver view for group-collapsing controllers."""
+        """Columnar receiver view for group-collapsing controllers.
+
+        True-surface batches are cached per (table version, receiver
+        rows): an event-free round returns the previous batch object
+        unchanged, and a round whose dirty rows the table's log bounds
+        ships a patched copy with the changed positions in ``delta`` — the
+        contract incremental controllers key their grouping on.  Batches
+        of caller-given ``policy_surfaces`` are built fresh every round.
+        """
         t = self.table
+        true_surfaces = policy_surfaces is None or sees_truth
+        c = self._batch_cache
+        if true_surfaces and c is not None and c[0] is t:
+            batch = self._patch_batch(c, rows)
+            if batch is not None:
+                return batch
         names = [t.names[r] for r in rows]
         strings = t.strings
-        if policy_surfaces is not None and not sees_truth:
-            surfaces = [policy_surfaces[nm] for nm in names]
+        surfaces = [None] * len(rows)
+        if true_surfaces:
+            self._fill_true_surfaces(rows, surfaces)
         else:
-            surfaces = [None] * len(rows)
-            for gid, slowdown, ii in self._measure_groups(rows):
-                surf = self._surface_of(strings[gid], slowdown)
-                for i in ii:
-                    surfaces[i] = surf
-        return ReceiverBatch(
+            surfaces = [policy_surfaces[nm] for nm in names]
+        batch = ReceiverBatch(
             names=names,
             surface_ids=[strings[t.sid_gid[r]] for r in rows],
             baselines=t.caps[rows],
             surfaces=surfaces,
             seq=next(_BATCH_SEQ),
         )
+        if true_surfaces:
+            self._batch_cache = (t, t.version, rows, batch)
+        return batch
 
     def run_round(
         self,

@@ -1,26 +1,41 @@
 """Multiple-choice-knapsack solvers for reclaimed-power distribution (§3.2.2).
 
-The dense-grid part of ``repro.core.mckp``, ported:
+The port of ``repro.core.mckp``, minus the hierarchical and receding-horizon
+solvers (ROADMAP.md, queue 1).  Three families, each bitwise equal to the
+reference:
 
- * ``solve_dense``       — vectorized numpy DP over option costs;
- * ``solve_dense_jax``   — the dense DP as a loop of (max,+) stages on a
-                           torch device, one stage per receiver; grouped and
-                           budget-batched forms beside it.
+ * the host sparse solvers — ``solve_sparse`` (paper Algorithm 1, the dict
+   DP) and the group-collapsed ``solve_sparse_grouped`` (binary-split
+   aggregate curves, super-stage DP, canonical assembly) with their warm
+   caches; numpy, carried over as is.  ``solver="sparse"`` is the default.
+ * the fused device round — ``solve_grouped_fused`` keeps padded option
+   banks resident on a torch device (``FusedState``) and runs the leaf DP
+   as one sparse-option (max,+) stage per padded stage
+   (``repro_torch.kernels.ops.maxplus_stage_batched``: the CUDA kernel on a
+   CUDA device, its plain version on the CPU) in float64.  Only the flat
+   kind is ported; the tree and leaf-root kinds raise.
+ * the dense-grid solvers — ``solve_dense`` (numpy) and ``solve_dense_jax``
+   (a loop of (max,+) convolution stages on a torch device), with grouped
+   and budget-batched forms.  Their ``backend`` strings keep the
+   reference's names: ``"pallas"`` runs each stage through the dense CUDA
+   kernel on a CUDA device and through its plain version on the CPU;
+   ``"jax"`` runs the plain version on either, in float32.
 
-The ``backend`` strings keep the reference's names: ``"pallas"`` runs each
-stage through the hand-written CUDA kernel (``repro_torch.kernels``) on a
-CUDA device and through its plain PyTorch version on the CPU; ``"jax"``
-runs the plain PyTorch version on either.  Both compute in float32, as the
-reference does under default JAX, and are bitwise equal to it.
-
-The host sparse solvers (``solver="sparse"``, the reference default) and
-the hierarchical and fused paths are not ported yet (ROADMAP.md, queue 1).
+Determinism contract (the reference's): receivers with byte-identical
+option tables are interchangeable, so ``solve_sparse`` canonicalizes —
+identical-table stages exchange their chosen options so costs ascend in
+stage order — which is exactly the form the group-collapsed and fused
+solvers reproduce.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import itertools
+import math
+import time
+from collections import OrderedDict
+from typing import MutableMapping, Sequence
 
 import numpy as np
 import torch
@@ -30,10 +45,60 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
-SPARSE_NOT_PORTED = (
-    "solver='sparse' (the host sparse MCKP solvers) is not ported yet: "
-    "ROADMAP.md, queue 1, item 1; use solver='pallas', 'jax' or 'dense'"
-)
+
+class LRUCache(MutableMapping):
+    """Bounded mapping with least-recently-used eviction.
+
+    Drop-in for the plain-dict warm caches (aggregate curves, frontiers,
+    pick multisets): ``get``/``[]`` refresh recency, inserts beyond
+    ``maxsize`` evict the coldest entry.  Keeps long scenarios from growing
+    warm state without bound across distinct budgets/digests.
+    """
+
+    def __init__(self, maxsize: int = 512):
+        if maxsize < 1:
+            raise ValueError("maxsize must be >= 1")
+        self.maxsize = maxsize
+        self._d: OrderedDict = OrderedDict()
+
+    def __getitem__(self, key):
+        val = self._d[key]
+        self._d.move_to_end(key)
+        return val
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def __setitem__(self, key, val):
+        self._d[key] = val
+        self._d.move_to_end(key)
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+
+    def __delitem__(self, key):
+        del self._d[key]
+
+    def __iter__(self):
+        return iter(self._d)
+
+    def __len__(self):
+        return len(self._d)
+
+    def clear(self):
+        self._d.clear()
+
+    def resize(self, maxsize: int) -> None:
+        """Shrink or grow the bound in place, evicting coldest entries as
+        needed.  In-place matters: solver state (e.g. ``HierState``) holds
+        references to the same cache objects, so resizing must not rebind."""
+        if maxsize < 1:
+            raise ValueError("maxsize must be >= 1")
+        self.maxsize = maxsize
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
 
 
 @dataclasses.dataclass
@@ -50,18 +115,149 @@ class MCKPSolution:
         return self.total_value / n if n else 0.0
 
 
+# ---------------------------------------------------------------------------
+# Faithful Algorithm 1 (sparse dict DP)
+# ---------------------------------------------------------------------------
+
+
+def _qkey(u: float) -> float:
+    """State key: costs within 1e-6 W merge into one DP state.
+
+    Defined as floor(u * 1e6 + 0.5) * 1e-6 so the scalar form and the
+    vectorized :func:`_qkey_np` are bitwise identical (same float64 ops) —
+    the grouped solver's array DP and the ungrouped dict DP must agree on
+    every state key.  For grid-exact watt costs the key equals the sum
+    itself, so per-step rounding order cannot diverge between the two.
+    """
+    return math.floor(u * 1e6 + 0.5) * 1e-6
+
+
+def _qkey_np(u: np.ndarray) -> np.ndarray:
+    """Vectorized :func:`_qkey` (bitwise-identical float64 pipeline)."""
+    return np.floor(u * 1e6 + 0.5) * 1e-6
+
+
 def table_digest(opt: OptionTable) -> tuple:
     """Content identity of an option table (costs, values, caps bytes).
 
-    Receivers whose tables digest equally are interchangeable in any MCKP;
-    this is the key behaviour classes merge on.  Memoized on the (frozen,
-    content-immutable) table instance.
+    Receivers whose tables digest equally are *interchangeable* in any MCKP
+    — permuting their picks preserves value and feasibility.  This is the
+    group key of the collapsed solvers, and the equivalence class within
+    which ``solve_sparse`` canonicalizes its assignment.  Note a
+    multiplicatively-slowed straggler digests equally to its healthy peers:
+    relative improvements are invariant under constant slowdown.
+
+    Memoized on the (frozen, content-immutable) table instance so warm
+    controllers pay the bytes conversion once per table, not once per round.
     """
     d = opt.__dict__.get("_digest")
     if d is None:
         d = (opt.costs.tobytes(), opt.values.tobytes(), opt.caps.tobytes())
         object.__setattr__(opt, "_digest", d)
     return d
+
+
+def _pick_tuples(opt: OptionTable) -> list:
+    """Per-option ``(cost, value, (c, g))`` pick tuples, memoized on the
+    table — the one representation every solver's ``picks`` dict uses."""
+    pt = opt.__dict__.get("_pick_tuples")
+    if pt is None:
+        pt = [
+            (float(c), float(v), (float(cc[0]), float(cc[1])))
+            for c, v, cc in zip(opt.costs, opt.values, opt.caps)
+        ]
+        object.__setattr__(opt, "_pick_tuples", pt)
+    return pt
+
+
+_group_counter = itertools.count(1)
+
+
+def _group_token(g: "GroupedOptions") -> int:
+    """Process-unique identity token of one (immutable) GroupedOptions.
+
+    Incremental controllers reuse group objects across rounds while their
+    membership is unchanged, so token tuples are cheap round-over-round
+    cache keys for merged-class plans (unlike ``id()``, tokens are never
+    reused after garbage collection)."""
+    t = g.__dict__.get("_token")
+    if t is None:
+        t = next(_group_counter)
+        object.__setattr__(g, "_token", t)
+    return t
+
+
+def _canonical_solution(
+    options: Sequence[OptionTable], js: list[int]
+) -> MCKPSolution:
+    """Assemble a solution from per-stage option choices in canonical form.
+
+    Identical-table stages (same :func:`table_digest`) exchange their
+    chosen options so option indices ascend in stage order, and
+    ``total_value`` / ``spent`` are accumulated stage by stage — the one
+    deterministic representative of the optimum's permutation class, and
+    exactly what :func:`solve_sparse_grouped` reconstructs.
+    """
+    by_digest: dict[tuple, list[int]] = {}
+    for i, opt in enumerate(options):
+        by_digest.setdefault(table_digest(opt), []).append(i)
+    for idxs in by_digest.values():
+        if len(idxs) > 1:
+            for i, j in zip(idxs, sorted(js[i] for i in idxs)):
+                js[i] = j
+    picks: dict[str, tuple[float, float, tuple[float, float]]] = {}
+    total = 0.0
+    spent = 0.0
+    for i, opt in enumerate(options):
+        j = js[i]
+        picks[opt.name] = (
+            float(opt.costs[j]),
+            float(opt.values[j]),
+            (float(opt.caps[j, 0]), float(opt.caps[j, 1])),
+        )
+        total += float(opt.values[j])
+        spent += float(opt.costs[j])
+    return MCKPSolution(total_value=total, spent=spent, picks=picks)
+
+
+def solve_sparse(options: Sequence[OptionTable], budget: float) -> MCKPSolution:
+    """Paper Algorithm 1 with parent-pointer backtracking.
+
+    States are keyed by *used power* (floats straight from the option
+    tables — no budget discretization), exactly like the pseudo-code's
+    ``DP`` dict.  Costs within 1e-6 W are merged to keep the state count
+    equal to the number of distinct achievable sums.  The returned solution
+    is canonicalized (see :func:`_canonical_solution`) so interchangeable
+    receivers always get their picks in ascending-cost stage order.
+    """
+    qkey = _qkey
+    # DP: used -> (score, parent_used, option_index)
+    dp: dict[float, tuple[float, float, int]] = {0.0: (0.0, -1.0, -1)}
+    stages: list[dict[float, tuple[float, float, int]]] = []
+    for opt in options:
+        ndp: dict[float, tuple[float, float, int]] = {}
+        for u, (score, _, _) in dp.items():
+            for j in range(opt.k):
+                e = float(opt.costs[j])
+                if u + e > budget + 1e-9:
+                    continue
+                key = qkey(u + e)
+                s = score + float(opt.values[j])
+                cur = ndp.get(key)
+                if cur is None or s > cur[0]:
+                    ndp[key] = (s, u, j)
+        stages.append(ndp)
+        dp = ndp
+
+    # best end state, then walk parents backwards
+    best_u = max(dp, key=lambda u: dp[u][0])
+    js: list[int] = [0] * len(options)
+    u = best_u
+    for i in range(len(options) - 1, -1, -1):
+        _, parent, j = stages[i][qkey(u)]
+        js[i] = j
+        u = parent
+    return _canonical_solution(options, js)
 
 
 def _pick(opt: OptionTable, j: int) -> tuple[float, float, tuple[float, float]]:
@@ -73,13 +269,18 @@ def _pick(opt: OptionTable, j: int) -> tuple[float, float, tuple[float, float]]:
 
 
 # ---------------------------------------------------------------------------
-# Behaviour-class grouping
+# Group-collapsed sparse DP (bounded MCKP via binary-split multiplicity)
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupedOptions:
-    """One behaviour class: a shared option table with its member receivers."""
+    """One behaviour class: a shared option table with its member receivers.
+
+    All members share the table (same surface identity, baseline and
+    slowdown class), so the group acts as a bounded multiple-choice item
+    with multiplicity ``m = len(members)``.
+    """
 
     table: OptionTable
     members: tuple[str, ...]
@@ -109,7 +310,9 @@ def collapse_receivers(
     """Collapse aligned receiver columns into behaviour-class groups.
 
     Receivers sharing (surface identity, baseline) form one class;
-    ``build_table(surface, baseline)`` is called once per class.
+    ``build_table(surface, baseline)`` is called once per class (a warm
+    cache lookup on the controller path, a fresh ``curves.build_options``
+    on the pure-policy path).
     """
     classes: dict[tuple, list] = {}
     for name, surf, base in zip(names, surfaces, baselines):
@@ -127,9 +330,305 @@ def collapse_receivers(
     ]
 
 
+def solve_grouped(
+    groups: Sequence[GroupedOptions],
+    budget: float,
+    *,
+    solver: str = "sparse",
+    unit: float = 1.0,
+    curve_cache: MutableMapping | None = None,
+    pick_cache: MutableMapping | None = None,
+    plan_cache: MutableMapping | None = None,
+    chain_cache: MutableMapping | None = None,
+    device: str | torch.device | None = None,
+) -> MCKPSolution:
+    """Solver dispatch for the group-collapsed paths (see ``solve_*_grouped``).
+    ``device`` is where the ``"jax"``/``"pallas"`` stages run (None = the
+    CUDA card); the sparse and dense solvers run on the host."""
+    if solver == "sparse":
+        return solve_sparse_grouped(
+            groups,
+            budget,
+            curve_cache=curve_cache,
+            pick_cache=pick_cache,
+            plan_cache=plan_cache,
+            chain_cache=chain_cache,
+        )
+    if solver == "dense":
+        return solve_dense_grouped(groups, budget, unit=unit)
+    if solver in ("jax", "pallas"):
+        return solve_dense_jax_grouped(
+            groups, budget, unit=unit, backend=solver, device=device
+        )
+    raise ValueError(f"unknown solver {solver!r}")
+
+
+def _dedupe_first_max(
+    keys: np.ndarray, vals: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per distinct key keep the max value — first occurrence on ties.
+
+    Mirrors the dict DP's ``cur is None or s > cur[0]`` update over the
+    candidates in array order.  Returns (sorted unique keys, selector into
+    the input arrays).
+    """
+    order = np.lexsort((np.arange(len(keys)), -vals, keys))
+    k_sorted = keys[order]
+    first = np.ones(len(order), dtype=bool)
+    first[1:] = k_sorted[1:] != k_sorted[:-1]
+    sel = order[first]
+    return keys[sel], sel
+
+
+def _micro_int(keys: np.ndarray) -> np.ndarray | None:
+    """Exact micro-watt integers of quantized spend keys, or None.
+
+    Every spend key in the sparse solvers is a :func:`_qkey` multiple of
+    1e-6, i.e. ``float64(n) * 1e-6`` for an integer ``n`` — so ``n`` is
+    recoverable exactly and ``float64(n) * 1e-6`` reproduces the key
+    *bitwise*.  Returns None when any key fails the round-trip (non-qkey
+    floats), which routes the caller to the generic lexsort path.
+    """
+    ints = np.round(keys * 1e6).astype(np.int64)
+    recon = ints.astype(np.float64) * 1e-6
+    if recon.tobytes() != keys.tobytes():
+        return None
+    return ints
+
+
+#: int-lattice fast path bound: skip when the dense spend grid would exceed
+#: this many states (degenerate tiny-gcd key sets fall back to lexsort)
+_INT_LATTICE_MAX_STATES = 1 << 21
+
+#: spend-grid chunk for the [K, chunk] candidate tile of the int path
+_INT_LATTICE_CHUNK = 1 << 14
+
+
+def _maxplus_pair(
+    a_keys: np.ndarray,
+    a_vals: np.ndarray,
+    b_keys: np.ndarray,
+    b_vals: np.ndarray,
+    budget: float,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(max,+)-convolve two sparse value-vs-spend curves under ``budget``.
+
+    Returns ``(keys, vals, left_keys, right_keys)``: the deduped combined
+    curve (ascending quantized spends, best value each) plus, per state,
+    the (a, b) spend split realizing it.  Tie-breaking is the scalar dict
+    DP's: among equal (key, value) candidates the smallest a-spend wins
+    (first occurrence in (a index, b index) order).
+
+    This is the one convolution primitive behind ``_AggCurve.combine``,
+    the super-stage DP and the hierarchical frontier tree.  When both key
+    sets sit on a common integer watt lattice (grid-aligned costs — the
+    production case) the outer-product + lexsort dedupe collapses to a
+    dense gather + argmax over the integer spend grid, bitwise identical
+    and ~10x faster; otherwise the generic lexsort path runs.
+    """
+    if len(a_keys) * len(b_keys) > 2048:
+        # the int-lattice setup only pays off past a few thousand candidates
+        ia = _micro_int(a_keys)
+        ib = _micro_int(b_keys) if ia is not None else None
+        if ib is not None and len(ia) and len(ib):
+            out = _maxplus_pair_int(
+                ia, a_keys, a_vals, ib, b_keys, b_vals, budget
+            )
+            if out is not None:
+                return out
+    # generic path: full outer product, feasibility prune, first-max dedupe
+    raw = (a_keys[:, None] + b_keys[None, :]).ravel()
+    vals = (a_vals[:, None] + b_vals[None, :]).ravel()
+    feas = np.flatnonzero(raw <= budget + 1e-9)
+    keys, sel = _dedupe_first_max(_qkey_np(raw[feas]), vals[feas])
+    sel = feas[sel]
+    nb = len(b_keys)
+    return keys, vals[sel], a_keys[sel // nb], b_keys[sel % nb]
+
+
+def _maxplus_pair_int(
+    ia: np.ndarray,
+    a_keys: np.ndarray,
+    a_vals: np.ndarray,
+    ib: np.ndarray,
+    b_keys: np.ndarray,
+    b_vals: np.ndarray,
+    budget: float,
+) -> tuple | None:
+    """Integer-lattice (max,+) pair convolution (see :func:`_maxplus_pair`).
+
+    Spends become indices on the gcd-pitch grid; each output state gathers
+    its candidates as ``a_dense[t - b] + b_val`` and an argmax with
+    last-maximizer tie-breaking reproduces the dict DP's first-max over
+    (a asc, b asc) candidate order (for a fixed sum, ascending a-spend is
+    descending b-spend).  Returns None when the grid would be too large.
+    """
+    g = int(np.gcd(np.gcd.reduce(ia), np.gcd.reduce(ib)))
+    if g <= 0:
+        # all spends are zero: single state (0, best value pair)
+        g = 1
+    # largest feasible grid index (micro-watt bound mirrors `<= budget+1e-9`)
+    bound = np.floor((budget + 1e-9) * 1e6 / g)
+    if not np.isfinite(bound):
+        return None
+    tmax = min(int(bound), int(ia.max() // g + ib.max() // g))
+    if tmax < 0:
+        # no feasible state at all (negative budget cannot happen upstream,
+        # but keep the generic path authoritative for it)
+        return None
+    if tmax + 1 > _INT_LATTICE_MAX_STATES:
+        return None
+    nb = tmax + 1
+    iag = ia // g
+    ibg = ib // g
+    keep_a = np.flatnonzero(iag <= tmax)
+    keep_b = np.flatnonzero(ibg <= tmax)
+    if not len(keep_a) or not len(keep_b):
+        return None
+    kmax = int(ibg[keep_b].max())
+    # a side densified on the grid, left-padded by kmax so every gather
+    # index t - kb + kmax is in-bounds (holes and padding are -inf)
+    a_pad = np.full(nb + kmax, -np.inf)
+    a_pos = np.zeros(nb, dtype=np.int64)
+    a_pad[iag[keep_a] + kmax] = a_vals[keep_a]
+    a_pos[iag[keep_a]] = keep_a
+    # b options in descending-spend order: a plain row argmax then picks,
+    # among ties, the largest b spend == the smallest a spend — the dict
+    # DP's first max in (a asc, b asc) candidate order
+    kbr = ibg[keep_b][::-1].copy()
+    vbr = b_vals[keep_b][::-1].copy()
+    k = len(kbr)
+
+    out_vals = np.empty(nb, dtype=np.float64)
+    out_jr = np.empty(nb, dtype=np.int64)
+    for t0 in range(0, nb, _INT_LATTICE_CHUNK):
+        t = np.arange(t0, min(t0 + _INT_LATTICE_CHUNK, nb))
+        idx = t[:, None] - kbr[None, :] + kmax  # [chunk, K], all in-bounds
+        cand = a_pad[idx]
+        cand += vbr[None, :]
+        jr = np.argmax(cand, axis=1)
+        out_jr[t] = jr
+        out_vals[t] = cand[np.arange(len(t)), jr]
+
+    feas = np.flatnonzero(out_vals > -np.inf)
+    jr = out_jr[feas]
+    ta = feas - kbr[jr]
+    keys = ((feas * g).astype(np.float64)) * 1e-6
+    return (
+        keys,
+        out_vals[feas],
+        a_keys[a_pos[ta]],
+        b_keys[keep_b[k - 1 - jr]],
+    )
+
+
+class _AggCurve:
+    """Sparse aggregate curve of ``t`` copies of one option table.
+
+    Columns over the curve's states (ascending spend key): ``keys`` are
+    quantized spends, ``vals`` the best achievable value at each.  For a
+    leaf curve (t == 1) ``back`` holds option indices; for a combined curve
+    ``back_left`` / ``back_right`` hold the (left, right) spend split, so
+    :meth:`unwind` can walk the binary-split tree back down to the multiset
+    of single-receiver picks.  All convolutions are vectorized outer
+    (max,+) products deduped by :func:`_dedupe_first_max` — the same
+    candidate order and tie-breaking as the scalar dict DP.
+    """
+
+    __slots__ = ("keys", "vals", "back", "back_left", "back_right", "left", "right")
+
+    def __init__(self, keys, vals, back=None, back_left=None, back_right=None,
+                 left=None, right=None):
+        self.keys: np.ndarray = keys
+        self.vals: np.ndarray = vals
+        self.back = back
+        self.back_left = back_left
+        self.back_right = back_right
+        self.left: _AggCurve | None = left
+        self.right: _AggCurve | None = right
+
+    @staticmethod
+    def leaf(table: OptionTable, budget: float) -> "_AggCurve":
+        feas = np.flatnonzero(table.costs <= budget + 1e-9)
+        keys = _qkey_np(table.costs[feas])
+        _, sel = _dedupe_first_max(keys, table.values[feas])
+        return _AggCurve(
+            keys=keys[sel], vals=table.values[feas][sel], back=feas[sel]
+        )
+
+    @staticmethod
+    def combine(a: "_AggCurve", b: "_AggCurve", budget: float) -> "_AggCurve":
+        keys, vals, left, right = _maxplus_pair(
+            a.keys, a.vals, b.keys, b.vals, budget
+        )
+        return _AggCurve(
+            keys=keys,
+            vals=vals,
+            back_left=left,
+            back_right=right,
+            left=a,
+            right=b,
+        )
+
+    def _at(self, spend: float) -> int:
+        i = int(np.searchsorted(self.keys, spend))
+        if i >= len(self.keys) or self.keys[i] != spend:
+            raise KeyError(f"aggregate curve has no state at {spend!r}")
+        return i
+
+    def unwind(self, spend: float, out: list[int]) -> None:
+        """Collect the option-index multiset realizing ``spend``."""
+        i = self._at(spend)
+        if self.left is None:
+            out.append(int(self.back[i]))
+        else:
+            self.left.unwind(float(self.back_left[i]), out)
+            self.right.unwind(float(self.back_right[i]), out)
+
+
+def aggregate_curve(
+    table: OptionTable, m: int, budget: float,
+    chain: list[_AggCurve] | None = None,
+) -> _AggCurve:
+    """m-fold (max,+) self-convolution of a table's sparse staircase.
+
+    Binary split: O(log m) pairwise convolutions build the doubling chain
+    P_1, P_2, P_4, ... and the set bits of ``m`` combine into the final
+    curve.  State count stays bounded by the distinct achievable sums
+    <= budget, so each convolution is one small vectorized outer product.
+
+    ``chain`` optionally persists the doubling chain across calls (keyed by
+    (digest, budget) in ``_class_curves``): the powers are multiplicity-
+    independent, so when membership churn shifts a class from m to m', only
+    the popcount(m') set-bit combines rerun — not the whole chain.
+    """
+    if chain is None:
+        chain = []
+    if not chain:
+        chain.append(_AggCurve.leaf(table, budget))
+    acc: _AggCurve | None = None
+    bit = m
+    i = 0
+    while bit:
+        if i >= len(chain):
+            chain.append(_AggCurve.combine(chain[-1], chain[-1], budget))
+        if bit & 1:
+            acc = (
+                chain[i] if acc is None
+                else _AggCurve.combine(acc, chain[i], budget)
+            )
+        bit >>= 1
+        i += 1
+    assert acc is not None
+    return acc
+
+
 def _merge_classes(groups: Sequence[GroupedOptions]) -> list[list]:
-    """Merge interchangeable groups (equal table content) into classes:
-    ``[table, members, digest]`` triples sorted by min member name."""
+    """Merge interchangeable groups (equal table content) into classes.
+
+    Returns ``[table, members, digest]`` triples sorted by min member name —
+    the deterministic class order every grouped/hierarchical solver shares.
+    """
     merged: dict[tuple, list] = {}
     for g in groups:
         d = table_digest(g.table)
@@ -141,25 +640,931 @@ def _merge_classes(groups: Sequence[GroupedOptions]) -> list[list]:
     return sorted(merged.values(), key=lambda s: min(s[1]))
 
 
-def solve_grouped(
+class _LeafPlan:
+    """Merged-class layout of one behaviour-class set.
+
+    Precomputes everything about the *stage structure* that is independent
+    of budget and spends: the digest-merged classes in canonical order
+    (sorted by min member name, members name-sorted within each class), the
+    ``layout`` content key of the frontier caches, and the permutation
+    taking class-concatenated members to the globally name-sorted order the
+    canonical assembly uses.  Plans are cached by the group-token tuple so
+    incremental controllers reusing unchanged ``GroupedOptions`` objects
+    skip the per-round merge + sorts entirely.
+    """
+
+    __slots__ = ("classes", "layout", "names_sorted", "order", "key")
+
+    def __init__(self, classes, layout, names_sorted, order, key):
+        self.classes: list[list] = classes
+        self.layout: tuple = layout
+        self.names_sorted: list[str] = names_sorted
+        self.order: np.ndarray = order
+        #: group-token tuple when plan-cached (None on ephemeral plans)
+        self.key: tuple | None = key
+
+
+def _leaf_plan(
+    groups: Sequence[GroupedOptions],
+    plan_cache: MutableMapping | None = None,
+) -> _LeafPlan:
+    """Build (or fetch) the :class:`_LeafPlan` of a behaviour-class set."""
+    key = None
+    if plan_cache is not None:
+        key = tuple(sorted(_group_token(g) for g in groups))
+        hit = plan_cache.get(key)
+        if hit is not None:
+            return hit
+    classes = _merge_classes(groups)
+    for slot in classes:
+        slot[1].sort()
+    concat = [nm for _, members, _ in classes for nm in members]
+    if concat:
+        arr = np.asarray(concat)
+        order = np.argsort(arr, kind="stable")
+        names_sorted = arr[order].tolist()
+    else:
+        order = np.empty(0, dtype=np.int64)
+        names_sorted = []
+    plan = _LeafPlan(
+        classes=classes,
+        layout=tuple((d, len(m)) for _, m, d in classes),
+        names_sorted=names_sorted,
+        order=order,
+        key=key,
+    )
+    if plan_cache is not None:
+        plan_cache[key] = plan
+    return plan
+
+
+def _curve_cutoff(budget: float) -> float:
+    """Canonical aggregate-curve cutoff: the smallest power-of-two multiple
+    of 64 W at or above ``budget``.
+
+    Aggregate curves truncated to any cutoff >= the DP budget produce the
+    *same* feasible states, values and backtracked multisets (costs are
+    non-negative, so an over-cutoff state can never parent a feasible one,
+    and dropping it changes no candidate order among survivors).  Keying
+    curves and chains by this quantized cutoff instead of the raw budget
+    keeps them warm while per-domain headroom drifts watt-by-watt under
+    failures and deratings — the curve caches then miss only on genuine
+    class changes, not on accounting noise.
+    """
+    b = 64.0
+    while b < budget:
+        b *= 2.0
+    return b
+
+
+def _class_curves(
+    classes: Sequence[list],
+    budget: float,
+    curve_cache: MutableMapping | None,
+    chain_cache: MutableMapping | None = None,
+) -> tuple[list[_AggCurve], list[tuple]]:
+    """m-fold aggregate curve per class, memoized by (digest, m, budget).
+
+    ``chain_cache`` persists the multiplicity-independent doubling chains
+    by (digest, budget) — kept apart from ``curve_cache`` because churny
+    (digest, m) keys would otherwise evict the far-more-valuable chains.
+    Returns the curves plus their content cache keys (the pick-multiset
+    cache reuses them)."""
+    if chain_cache is None:
+        chain_cache = curve_cache
+    cutoff = _curve_cutoff(budget)
+    qc = _qkey(cutoff)
+    curves_: list[_AggCurve] = []
+    keys: list[tuple] = []
+    for table, members, d in classes:
+        key = (d, len(members), qc)
+        curve = curve_cache.get(key) if curve_cache is not None else None
+        if curve is None:
+            chain = None
+            if chain_cache is not None:
+                # membership churn (m -> m') then reruns only the set-bit
+                # combines, never the whole chain
+                ckey = (d, "powers", qc)
+                chain = chain_cache.get(ckey)
+                if chain is None:
+                    chain = []
+                    chain_cache[ckey] = chain  # type: ignore[index]
+            curve = aggregate_curve(table, len(members), cutoff, chain=chain)
+            if curve_cache is not None:
+                curve_cache[key] = curve  # type: ignore[index]
+        curves_.append(curve)
+        keys.append(key)
+    return curves_, keys
+
+
+def _superstage_dp(
+    stage_curves: Sequence[tuple[np.ndarray, np.ndarray]], budget: float
+) -> tuple[np.ndarray, np.ndarray, list]:
+    """Sparse DP over (keys, vals) super-stages under ``budget``.
+
+    Each stage is one vectorized outer (max,+) product over
+    [states x stage spends].  Stages may be class aggregate curves (grouped
+    solve) or whole domain frontiers (hierarchical solve).  Returns the
+    final ``(dp_keys, dp_vals, stages)`` where each backtracking stage is a
+    (keys, parent spend, stage spend) triple.
+    """
+    dp_keys = np.zeros(1, dtype=np.float64)
+    dp_vals = np.zeros(1, dtype=np.float64)
+    stages: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    for c_keys, c_vals in stage_curves:
+        # keys come back ascending from the dedupe, so the stage arrays
+        # are searchsorted-ready as-is
+        keys, vals, parents, spends = _maxplus_pair(
+            dp_keys, dp_vals, c_keys, c_vals, budget
+        )
+        stages.append((keys, parents, spends))
+        dp_keys = keys
+        dp_vals = vals
+    return dp_keys, dp_vals, stages
+
+
+class _IntStages:
+    """Backtracking record of one leaf solved by the *batched* integer-
+    lattice super-stage DP (:func:`_superstage_dp_batch`).
+
+    Holds, per stage, the dense winner table over the leaf's spend grid
+    plus the descending-spend stage key arrays; :meth:`backtrack` walks
+    them exactly like :func:`_backtrack_superstages` walks sparse stage
+    tuples — same states, same spends, bitwise.
+    """
+
+    __slots__ = ("g", "win", "kb_desc", "keys_desc", "nstages")
+
+    def __init__(self, g, win, kb_desc, keys_desc, nstages):
+        self.g = g
+        self.win = win
+        self.kb_desc = kb_desc
+        self.keys_desc = keys_desc
+        self.nstages = nstages
+
+    def backtrack(self, u: float) -> list[float]:
+        t = int(round(u * 1e6)) // self.g
+        spends = [0.0] * self.nstages
+        for s in range(self.nstages - 1, -1, -1):
+            j = int(self.win[s][t])
+            spends[s] = float(self.keys_desc[s][j])
+            t -= int(self.kb_desc[s][j])
+        return spends
+
+
+def _backtrack_superstages(stages, u: float) -> list[float]:
+    """Walk the super-stage DP backwards from end state ``u``: the per-stage
+    spends realizing it (stage order)."""
+    if isinstance(stages, _IntStages):
+        return stages.backtrack(u)
+    spends: list[float] = [0.0] * len(stages)
+    for i in range(len(stages) - 1, -1, -1):
+        keys, parents, spends_stage = stages[i]
+        pos = int(np.searchsorted(keys, u))
+        spends[i] = float(spends_stage[pos])
+        u = float(parents[pos])
+    return spends
+
+
+def _superstage_dp_batch(
+    jobs: Sequence[tuple[Sequence[tuple[np.ndarray, np.ndarray]], float]],
+) -> list[tuple[np.ndarray, np.ndarray, _IntStages]] | None:
+    """Solve many leaves' super-stage DPs in one vectorized pass.
+
+    ``jobs`` is a list of (stage curves, eff budget) pairs — one per dirty
+    leaf.  All leaves advance through their stages *together*: stage ``s``
+    of every leaf is a single [L, K, NB] gather + argmax on the per-leaf
+    integer spend lattice, replacing L x S per-leaf convolution calls with
+    S batched numpy ops (the sparse-path analogue of the row-batched
+    dense convolution).  Per-leaf results — frontier keys,
+    values and backtracking stages — are **bitwise identical** to running
+    :func:`_superstage_dp` on each leaf alone: the candidate sets, float64
+    adds and (value desc, a-spend asc) tie-breaking are data-parallel
+    across leaves, padding rows are exact identities (+0.0), and per-leaf
+    feasibility masks mirror the per-stage pruning.  Returns None when any
+    leaf's keys leave the integer lattice or the padded grid would be
+    degenerate — callers then fall back to the per-leaf path.
+    """
+    L = len(jobs)
+    per_leaf = []
+    nb_max = 1
+    s_max = 1
+    k_max = 1
+    for stage_curves, eff in jobs:
+        ints = []
+        g = 0
+        for ck, cv in stage_curves:
+            ia = _micro_int(ck)
+            if ia is None or not len(ia):
+                return None
+            ints.append(ia)
+            g = int(np.gcd(g, np.gcd.reduce(ia)))
+        if g <= 0:
+            g = 1
+        bound = np.floor((eff + 1e-9) * 1e6 / g)
+        if not np.isfinite(bound) or bound < 0:
+            return None
+        tmax = int(bound)
+        if tmax + 1 > _INT_LATTICE_MAX_STATES // max(1, L):
+            return None
+        nb_max = max(nb_max, tmax + 1)
+        s_max = max(s_max, len(stage_curves))
+        stages_desc = []
+        for ia, (ck, cv) in zip(ints, stage_curves):
+            keep = np.flatnonzero(ia // g <= tmax)
+            if not len(keep):
+                return None
+            kb = (ia[keep] // g)[::-1].copy()
+            stages_desc.append(
+                (kb, cv[keep][::-1].copy(), ck[keep][::-1].copy())
+            )
+            k_max = max(k_max, len(kb))
+        per_leaf.append((g, tmax, stages_desc))
+
+    kmax_glob = 0
+    for g, tmax, stages_desc in per_leaf:
+        for kb, _, _ in stages_desc:
+            kmax_glob = max(kmax_glob, int(kb[0]) if len(kb) else 0)
+    if L * nb_max * k_max > _INT_LATTICE_MAX_STATES * 8:
+        # the per-stage [L, NB, K] candidate tile would be huge; the
+        # per-leaf path (chunked _maxplus_pair_int) handles such grids
+        return None
+
+    dp = np.full((L, kmax_glob + nb_max), -np.inf)
+    dp[:, kmax_glob] = 0.0
+    t_grid = np.arange(nb_max)
+    leaf_idx = np.arange(L)[:, None, None]
+    results_win: list[np.ndarray] = []
+    for s in range(s_max):
+        kbr = np.zeros((L, k_max), dtype=np.int64)
+        vbr = np.full((L, k_max), -np.inf)
+        for li, (g, tmax, stages_desc) in enumerate(per_leaf):
+            if s < len(stages_desc):
+                kb, vb, _ = stages_desc[s]
+                kbr[li, : len(kb)] = kb
+                vbr[li, : len(vb)] = vb
+            else:
+                vbr[li, 0] = 0.0  # identity stage: spend 0, value +0.0
+        # [L, NB, K] layout: the options axis is contiguous, so the
+        # tie-breaking argmax (first max over descending spends) is a
+        # cache-friendly row reduction
+        idx = t_grid[None, :, None] - kbr[:, None, :] + kmax_glob
+        cand = dp[leaf_idx, idx]
+        cand += vbr[:, None, :]
+        jr = np.argmax(cand, axis=2)
+        out = np.take_along_axis(cand, jr[:, :, None], axis=2)[:, :, 0]
+        for li, (g, tmax, _) in enumerate(per_leaf):
+            if tmax + 1 < nb_max:
+                out[li, tmax + 1 :] = -np.inf
+        dp[:, kmax_glob:] = out
+        results_win.append(jr.astype(np.int32))
+
+    out_final = dp[:, kmax_glob:]
+    results = []
+    for li, (g, tmax, stages_desc) in enumerate(per_leaf):
+        feas = np.flatnonzero(out_final[li, : tmax + 1] > -np.inf)
+        dp_keys = (feas * g).astype(np.float64) * 1e-6
+        dp_vals = out_final[li, feas].copy()
+        stages = _IntStages(
+            g=g,
+            win=[results_win[s][li] for s in range(len(stages_desc))],
+            kb_desc=[kb for kb, _, _ in stages_desc],
+            keys_desc=[ks for _, _, ks in stages_desc],
+            nstages=len(stages_desc),
+        )
+        results.append((dp_keys, dp_vals, stages))
+    return results
+
+
+def _class_picks(
+    table: OptionTable,
+    curve: _AggCurve,
+    curve_key: tuple,
+    spend: float,
+    pick_cache: MutableMapping | None,
+) -> tuple[list, np.ndarray, np.ndarray]:
+    """One class's canonical pick column at ``spend``: name-sorted members
+    get the option multiset in ascending-cost order.  Returns (pick tuples,
+    costs, values) aligned with the class's sorted members — memoized by
+    (curve content key, quantized spend) so unchanged classes skip the
+    binary-split unwind entirely on warm rounds."""
+    pkey = (curve_key, _qkey(spend))
+    hit = pick_cache.get(pkey) if pick_cache is not None else None
+    if hit is None:
+        js: list[int] = []
+        curve.unwind(spend, js)
+        js.sort()
+        pt = _pick_tuples(table)
+        hit = ([pt[j] for j in js], table.costs[js], table.values[js])
+        if pick_cache is not None:
+            pick_cache[pkey] = hit
+    return hit
+
+
+def _assemble_plan(
+    plan: _LeafPlan,
+    curve_keys: Sequence[tuple],
+    curves_: Sequence[_AggCurve],
+    spends: Sequence[float],
+    pick_cache: MutableMapping | None,
+) -> tuple[dict, float, float]:
+    """Canonical assembly of one plan's solution: picks dict over the
+    name-sorted members plus (total_value, spent) accumulated in that same
+    order — bit-for-bit the ungrouped ``solve_sparse`` form (sequential
+    float64 adds via cumsum == the scalar left fold)."""
+    if not plan.names_sorted:
+        return {}, 0.0, 0.0
+    tuples_parts: list[list] = []
+    costs_parts: list[np.ndarray] = []
+    vals_parts: list[np.ndarray] = []
+    for (table, _, _), ckey, curve, spend in zip(
+        plan.classes, curve_keys, curves_, spends
+    ):
+        tups, costs, vals = _class_picks(table, curve, ckey, spend, pick_cache)
+        tuples_parts.append(tups)
+        costs_parts.append(costs)
+        vals_parts.append(vals)
+    flat_tuples = [t for part in tuples_parts for t in part]
+    order = plan.order
+    picks = dict(zip(plan.names_sorted, (flat_tuples[i] for i in order)))
+    costs = np.concatenate(costs_parts)[order]
+    vals = np.concatenate(vals_parts)[order]
+    total = float(np.cumsum(vals)[-1])
+    spent = float(np.cumsum(costs)[-1])
+    return picks, total, spent
+
+
+def solve_sparse_grouped(
     groups: Sequence[GroupedOptions],
     budget: float,
     *,
-    solver: str = "sparse",
-    unit: float = 1.0,
-    device: str | torch.device | None = None,
+    curve_cache: MutableMapping | None = None,
+    pick_cache: MutableMapping | None = None,
+    plan_cache: MutableMapping | None = None,
+    chain_cache: MutableMapping | None = None,
 ) -> MCKPSolution:
-    """Solver dispatch for the group-collapsed paths.  ``device`` is where
-    the ``"jax"``/``"pallas"`` stages run (None = the CUDA card)."""
-    if solver == "sparse":
-        raise NotImplementedError(SPARSE_NOT_PORTED)
-    if solver == "dense":
-        return solve_dense_grouped(groups, budget, unit=unit)
-    if solver in ("jax", "pallas"):
-        return solve_dense_jax_grouped(
-            groups, budget, unit=unit, backend=solver, device=device
+    """Group-collapsed Algorithm 1: one DP super-stage per behaviour class.
+
+    Equivalent to — and bit-for-bit equal with — ``solve_sparse`` on the
+    name-sorted ungrouped expansion: groups digesting equally merge first
+    (their members are interchangeable), each merged group contributes its
+    m-fold aggregate curve as a single DP stage, and the backtracked
+    per-group spends unwind into option multisets assigned to name-sorted
+    members in ascending-cost order (the sparse solver's canonical form).
+
+    All three caches are optional warm state (mutable mappings, e.g. a
+    controller's LRU dicts): ``curve_cache`` memoizes aggregate curves by
+    (digest, m, quantized budget), ``pick_cache`` memoizes unwound pick
+    multisets by (curve key, quantized spend), and ``plan_cache`` memoizes
+    merged-class layouts by group-token tuple — together they make a
+    steady-state re-solve cost O(changed classes), not O(cluster).
+    """
+    plan = _leaf_plan(groups, plan_cache)
+    curves_, curve_keys = _class_curves(
+        plan.classes, budget, curve_cache, chain_cache
+    )
+    dp_keys, dp_vals, stages = _superstage_dp(
+        [(c.keys, c.vals) for c in curves_], budget
+    )
+    u = float(dp_keys[int(np.argmax(dp_vals))])
+    spends = _backtrack_superstages(stages, u)
+    picks, total, spent = _assemble_plan(
+        plan, curve_keys, curves_, spends, pick_cache
+    )
+    return MCKPSolution(total_value=total, spent=spent, picks=picks)
+
+
+# ---------------------------------------------------------------------------
+# Fused device-resident sparse solve (DESIGN.md §14/§17), flat kind
+# ---------------------------------------------------------------------------
+
+#: fused-path grid bound: fall back to host when the padded global spend
+#: grid would exceed this many states (churn storms with tiny gcd pitches)
+_FUSED_MAX_NB = 4096
+
+#: per-stage option-count bound for the padded [S, L, K] device banks
+_FUSED_MAX_OPTS = 1024
+
+HIER_FUSED_NOT_PORTED = (
+    "the hierarchical fused kinds ('tree', 'leaf_root') are not ported yet: "
+    "ROADMAP.md, queue 1, item 3"
+)
+
+
+def _pow2_at_least(n: int, floor: int) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+class FusedState:
+    """Device-resident warm state for the fused steady-state round.
+
+    Holds the padded ``[S, L, K]`` option banks — spend offsets on the
+    shared integer micro-watt lattice (int32 ``kb``) and float64 values
+    (``vb``) — as resident torch tensors on the round's device, the
+    host-side per-row content signatures that drive delta patching, and
+    the reversed per-stage key arrays the host assembly maps device
+    backpointers through.  Banks use the reference's capacity-slack
+    layouts (DESIGN.md §17): padded dims are quantized tiers (pow2
+    options/grids, identity-row stage padding) that only ever grow, so
+    churn inside the slack is pure row content:
+
+     * same layout + same row signatures  -> zero upload;
+     * same layout, k rows changed        -> the k rebuilt rows are
+       written in place into the resident banks (``index_put_``);
+     * layout changed (leaf set, pad tier growth) -> device-side
+       compaction: a gather repacks every clean row into the new geometry
+       and only dirty rows upload.
+
+    Only the cold start (no resident banks, or banks on another device)
+    builds banks on the host and uploads them whole (``stats['rebuilds']``).
+    ``last_key``/``last_solution`` short-circuit the host assembly when the
+    device decision vector is unchanged round over round.
+    """
+
+    def __init__(self):
+        self.shape: tuple | None = None  # capacity-slack layout signature
+        self.names: tuple | None = None  # per-leaf names (compaction map)
+        self.row_sigs: list | None = None  # [L][S] per-row content sigs
+        self.kb_dev: torch.Tensor | None = None  # [S, L, K] int32 bank
+        self.vb_dev: torch.Tensor | None = None  # [S, L, K] float64 bank
+        self.keys_desc: list | None = None  # [L][S] host reversed key arrays
+        self.g: int = 0  # global micro-watt lattice pitch
+        self.device: torch.device | None = None  # where the banks live
+        self.last_key: tuple | None = None
+        self.last_solution: MCKPSolution | None = None
+        #: (curve key tuple) -> (leaf gcd pitch, per-class micro ints)
+        self._leaf_ints: dict = {}
+        #: row sig -> (kb desc, vals desc, keys desc, sig)
+        self._row_cache: dict = {}
+        #: last round's wall-clock split: prep/patch/compact/dispatch/
+        #: backtrack/assembly seconds
+        self.last_segments: dict = {}
+        self.stats: dict = {
+            "rounds": 0,
+            "fallbacks": 0,
+            "rebuilds": 0,
+            "compactions": 0,
+            "row_uploads": 0,
+            "short_circuits": 0,
+            "slack_utilization": 0.0,
+            "device_s": 0.0,
+            "fallback_reason": "",
+        }
+
+    def clear(self) -> None:
+        self.shape = None
+        self.names = None
+        self.row_sigs = None
+        self.kb_dev = None
+        self.vb_dev = None
+        self.keys_desc = None
+        self.g = 0
+        self.device = None
+        self.last_key = None
+        self.last_solution = None
+        self._leaf_ints.clear()
+        self._row_cache.clear()
+        self.last_segments = {}
+
+
+def _fused_leaf_rows(
+    spec: tuple, fstate: FusedState
+) -> tuple[int, int, list, bool] | None:
+    """Per-leaf lattice prep, mirroring ``_superstage_dp_batch``'s per-job
+    block: micro-int class keys, the leaf gcd pitch, and the per-stage
+    descending (offsets, values, keys) rows.  None routes to host."""
+    name, eff, plan, curves_, curve_keys = spec
+    lkey = tuple(curve_keys)
+    ent = fstate._leaf_ints.get(lkey)
+    if ent is None:
+        ints = []
+        g_l = 0
+        for c in curves_:
+            ia = _micro_int(c.keys)
+            if ia is None or not len(ia):
+                return None
+            ints.append(ia)
+            g_l = int(np.gcd(g_l, np.gcd.reduce(ia)))
+        all_zero = g_l == 0  # every class key is 0.0: the leaf can only spend 0
+        if g_l <= 0:
+            g_l = 1
+        if len(fstate._leaf_ints) > 1024:
+            fstate._leaf_ints.clear()
+        ent = (g_l, ints, all_zero)
+        fstate._leaf_ints[lkey] = ent
+    g_l, ints, all_zero = ent
+    if all_zero:
+        tmax_host = 0  # zero-spend leaf: one state, any lattice pitch fits
+    else:
+        bound = np.floor((eff + 1e-9) * 1e6 / g_l)
+        if not np.isfinite(bound) or bound < 0:
+            return None
+        tmax_host = int(bound)
+    rows = []
+    for s, (ia, curve, ckey) in enumerate(zip(ints, curves_, curve_keys)):
+        sig = (ckey, g_l, tmax_host)
+        row = fstate._row_cache.get(sig)
+        if row is None:
+            keep = np.flatnonzero(ia // g_l <= tmax_host)
+            if not len(keep):
+                return None
+            kb = (ia[keep] // g_l)[::-1].copy()  # leaf-lattice units
+            row = (
+                kb,
+                curve.vals[keep][::-1].copy(),
+                curve.keys[keep][::-1].copy(),
+                sig,
+            )
+            if len(fstate._row_cache) > 4096:
+                fstate._row_cache.clear()
+            fstate._row_cache[sig] = row
+        rows.append(row)
+    return g_l, tmax_host, rows, all_zero
+
+
+def _fused_leaf_scan(
+    kb: torch.Tensor, vb: torch.Tensor, tmax_leaf: torch.Tensor, nb: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched leaf super-stage DPs on the banks' device.
+
+    One sparse-option (max,+) stage launch per padded stage over all L
+    leaf rows (``kops.maxplus_stage_batched``: the CUDA kernel for CUDA
+    banks), each followed by the per-leaf feasibility mask — the device
+    image of ``_superstage_dp_batch``'s ``out[li, tmax+1:] = -inf``.
+    Returns (dp [L, NB], wins [S, L, NB] int32 backpointers)."""
+    n_stages, n_leaves, _ = kb.shape
+    dp = torch.full((n_leaves, nb), -torch.inf, dtype=vb.dtype, device=vb.device)
+    dp[:, 0] = 0.0
+    over = torch.arange(nb, device=vb.device)[None, :] > tmax_leaf[:, None]
+    wins = []
+    for s in range(n_stages):
+        out, arg = kops.maxplus_stage_batched(dp, kb[s], vb[s])
+        dp = torch.where(over, -torch.inf, out)
+        wins.append(arg)
+    return dp, torch.stack(wins)
+
+
+def _fused_run(
+    specs: list[tuple],
+    kind: str,
+    *,
+    pick_cache: MutableMapping | None,
+    fstate: FusedState,
+    device: torch.device,
+) -> MCKPSolution | None:
+    """One fused device round over prepared leaf specs.
+
+    ``specs``: per-leaf (name, eff, plan, curves, curve_keys).  Only
+    ``kind='flat'`` (the grouped solve: one leaf, no domain accounting) is
+    ported; ``'tree'`` and ``'leaf_root'`` raise.
+
+    Structure churn never routes to the host (DESIGN.md §17): content
+    changes patch rows in place under the unchanged capacity-slack layout,
+    and layout changes repack the resident banks by device-side
+    compaction.  Returns None only for off-lattice keys, oversized grids,
+    empty rounds or an infeasible root; ``fstate.stats['fallback_reason']``
+    records which.  A kernel build or launch error is never caught here.
+    """
+    if kind != "flat":
+        raise NotImplementedError(HIER_FUSED_NOT_PORTED)
+    stats = fstate.stats
+    seg = fstate.last_segments = {
+        "prep_s": 0.0, "patch_s": 0.0, "compact_s": 0.0,
+        "dispatch_s": 0.0, "backtrack_s": 0.0, "assembly_s": 0.0,
+    }
+    t_seg = time.perf_counter()
+    if fstate.device is not None and fstate.device != device:
+        fstate.clear()  # banks resident elsewhere: cold rebuild here
+    L = len(specs)
+    if L == 0:
+        stats["fallbacks"] += 1
+        stats["fallback_reason"] = "empty"
+        return None
+
+    prepped = []
+    for spec in specs:
+        pr = _fused_leaf_rows(spec, fstate)
+        if pr is None:
+            stats["fallbacks"] += 1
+            stats["fallback_reason"] = "off_lattice"
+            return None
+        prepped.append(pr)
+
+    g = 0
+    for (g_l, _, rows, all_zero) in prepped:
+        if rows and not all_zero:
+            # zero-spend leaves contribute nothing: their only state (0)
+            # sits on every lattice, so they must not shrink the pitch
+            g = int(np.gcd(g, g_l))
+    if g <= 0:
+        g = 1
+
+    s_max = 1
+    k_max = 1
+    nb_needed = 1
+    tmax_dev = np.zeros(L, dtype=np.int32)
+    for li, (g_l, tmax_host, rows, all_zero) in enumerate(prepped):
+        if rows:
+            mult = 1 if all_zero else g_l // g
+            td = tmax_host * mult
+            if td + 1 > _FUSED_MAX_NB:
+                stats["fallbacks"] += 1
+                stats["fallback_reason"] = "grid_overflow"
+                return None
+            tmax_dev[li] = td
+            nb_needed = max(nb_needed, td + 1)
+            s_max = max(s_max, len(rows))
+            for kb, _, _, _ in rows:
+                k_max = max(k_max, len(kb))
+
+    if k_max > _FUSED_MAX_OPTS:
+        stats["fallbacks"] += 1
+        stats["fallback_reason"] = "grid_overflow"
+        return None
+    nb_pad = _pow2_at_least(nb_needed, 16)
+    if nb_pad > _FUSED_MAX_NB:
+        stats["fallbacks"] += 1
+        stats["fallback_reason"] = "grid_overflow"
+        return None
+    s_pad = max(1, -(-s_max // 8) * 8)
+    k_pad = _pow2_at_least(max(k_max, 1), 4)
+
+    names = tuple(name for name, *_ in specs)
+    # sticky pads: padding up is always exact (identity stages, -inf
+    # option tails, masked grid tops), so never shrink the resident tiers
+    # while the solver kind matches — churn across a pow2 boundary must
+    # not flap between compactions
+    if fstate.shape is not None and fstate.shape[0] == kind:
+        _pk, _pL, ps, pkk, pnb = fstate.shape[:5]
+        s_pad = max(s_pad, ps)
+        k_pad = max(k_pad, pkk)
+        nb_pad = max(nb_pad, pnb)
+    # capacity-slack layout signature (DESIGN.md §17): kind, leaf count
+    # and padded tiers.  The pitch g, leaf names and option rows are
+    # content, moved by the delta-patch or compaction path; row
+    # signatures fold in the leaf->global lattice multiplier, so a pitch
+    # change re-uploads exactly the rows whose device image it moved.
+    layout = (kind, L, s_pad, k_pad, nb_pad)
+    stats["slack_utilization"] = max(
+        s_max / s_pad, k_max / k_pad, nb_needed / nb_pad
+    )
+
+    bank_shape = (s_pad, L, k_pad)
+    rebuild = fstate.shape is None
+    compact = not rebuild and (
+        fstate.shape != layout or tuple(fstate.kb_dev.shape) != bank_shape
+    )
+    if compact and (
+        fstate.shape[0] != kind
+        or len(set(names)) != len(names)
+        or len(set(fstate.names or ())) != len(fstate.names or ())
+    ):
+        # unmappable resident state (ambiguous leaf identities): cold host
+        # rebuild — still a fused round
+        rebuild, compact = True, False
+
+    def upload_rows(entries):
+        # entries: (s, li, kb_glob | None, vb | None); None = identity row.
+        # Written in place into the resident banks (index_put_).
+        m = len(entries)
+        s_np = np.empty(m, dtype=np.int64)
+        l_np = np.empty(m, dtype=np.int64)
+        kb_rows = np.zeros((m, k_pad), dtype=np.int32)
+        vb_rows = np.full((m, k_pad), -np.inf)
+        for i, (s, li, kbg, vb) in enumerate(entries):
+            s_np[i] = s
+            l_np[i] = li
+            if kbg is None:
+                vb_rows[i, 0] = 0.0
+            else:
+                kb_rows[i, : len(kbg)] = kbg
+                vb_rows[i, : len(vb)] = vb
+        si = torch.from_numpy(s_np).to(device)
+        lj = torch.from_numpy(l_np).to(device)
+        fstate.kb_dev[si, lj] = torch.from_numpy(kb_rows).to(device)
+        fstate.vb_dev[si, lj] = torch.from_numpy(vb_rows).to(device)
+        stats["row_uploads"] += m
+        fstate.last_key = None
+
+    seg["prep_s"] = time.perf_counter() - t_seg
+    t_seg = time.perf_counter()
+    if rebuild:
+        # cold start (or unmappable state): host-built banks, one full
+        # upload — the only non-O(churn) sync point
+        kb_np = np.zeros((s_pad, L, k_pad), dtype=np.int32)
+        vb_np = np.full((s_pad, L, k_pad), -np.inf)
+        vb_np[:, :, 0] = 0.0  # identity padding stages/rows: spend 0, +0.0
+        row_sigs: list[list] = [[None] * s_pad for _ in range(L)]
+        keys_desc: list[list] = [[None] * s_pad for _ in range(L)]
+        for li, (g_l, tmax_host, rows, all_zero) in enumerate(prepped):
+            mult = 1 if all_zero else g_l // g
+            for s, (kb, vb, keys, sig) in enumerate(rows):
+                n = len(kb)
+                kb_np[s, li, :n] = kb * mult
+                vb_np[s, li, :n] = vb
+                vb_np[s, li, n:] = -np.inf
+                row_sigs[li][s] = (sig, mult)
+                keys_desc[li][s] = keys
+        fstate.kb_dev = torch.from_numpy(kb_np).to(device)
+        fstate.vb_dev = torch.from_numpy(vb_np).to(device)
+        fstate.device = device
+        fstate.row_sigs = row_sigs
+        fstate.keys_desc = keys_desc
+        fstate.shape = layout
+        fstate.names = names
+        fstate.g = g
+        fstate.last_key = None
+        fstate.last_solution = None
+        stats["rebuilds"] += 1
+        seg["patch_s"] += time.perf_counter() - t_seg
+    elif compact:
+        # device-side compaction (DESIGN.md §17): repack every row whose
+        # content signature survived with one gather out of the old banks
+        # (zero upload), then write only the dirty rows
+        old_pos = {nm: i for i, nm in enumerate(fstate.names or ())}
+        o_s_pad = int(fstate.kb_dev.shape[0])
+        src_s = np.full((s_pad, L), -1, dtype=np.int64)
+        src_l = np.full((s_pad, L), -1, dtype=np.int64)
+        row_sigs = [[None] * s_pad for _ in range(L)]
+        keys_desc = [[None] * s_pad for _ in range(L)]
+        dirty: list[tuple] = []
+        for li, (g_l, tmax_host, rows, all_zero) in enumerate(prepped):
+            mult = 1 if all_zero else g_l // g
+            oli = old_pos.get(names[li])
+            for s in range(s_pad):
+                if s < len(rows):
+                    kb, vb, keys, sig = rows[s]
+                    esig = (sig, mult)
+                else:
+                    kb = vb = keys = None
+                    esig = None
+                row_sigs[li][s] = esig
+                keys_desc[li][s] = keys
+                if esig is None:
+                    continue  # identity rows come from the init
+                if (
+                    oli is not None
+                    and s < o_s_pad
+                    and fstate.row_sigs[oli][s] == esig
+                ):
+                    src_s[s, li] = s
+                    src_l[s, li] = oli
+                else:
+                    dirty.append((s, li, kb * mult, vb))
+        fstate.kb_dev, fstate.vb_dev = kops.bank_compact(
+            fstate.kb_dev, fstate.vb_dev,
+            torch.from_numpy(src_s).to(device),
+            torch.from_numpy(src_l).to(device),
+            k_pad=k_pad,
         )
-    raise ValueError(f"unknown solver {solver!r}")
+        fstate.row_sigs = row_sigs
+        fstate.keys_desc = keys_desc
+        fstate.shape = layout
+        fstate.names = names
+        fstate.g = g
+        fstate.last_key = None
+        fstate.last_solution = None
+        stats["compactions"] += 1
+        seg["compact_s"] += time.perf_counter() - t_seg
+        t_seg = time.perf_counter()
+        if dirty:
+            upload_rows(dirty)
+        seg["patch_s"] += time.perf_counter() - t_seg
+    else:
+        # delta patch: write only the rows whose content signature moved
+        entries: list[tuple] = []
+        for li, (g_l, tmax_host, rows, all_zero) in enumerate(prepped):
+            mult = 1 if all_zero else g_l // g
+            for s in range(s_pad):
+                if s < len(rows):
+                    kb, vb, keys, sig = rows[s]
+                    esig = (sig, mult)
+                else:
+                    kb = vb = keys = None
+                    esig = None
+                if fstate.row_sigs[li][s] == esig:
+                    continue
+                entries.append((s, li, None if kb is None else kb * mult, vb))
+                fstate.row_sigs[li][s] = esig
+                fstate.keys_desc[li][s] = keys
+        if entries:
+            upload_rows(entries)
+        fstate.names = names
+        fstate.g = g
+        seg["patch_s"] += time.perf_counter() - t_seg
+
+    t0 = time.perf_counter()
+    kb_dev, vb_dev = fstate.kb_dev, fstate.vb_dev
+    dp, wins = _fused_leaf_scan(
+        kb_dev, vb_dev, torch.from_numpy(tmax_dev).to(device), nb_pad
+    )
+    # flat round: the root is leaf row 0; first maximum taken explicitly
+    root_vec = dp[0]
+    root_val = root_vec.max()
+    t_root_dev = torch.nonzero(root_vec == root_val)[0, 0]
+    # one device -> host copy: root, backpointers and the offsets bank
+    # the backtrack walks (int32, [S, L, NB] + [S, L, K])
+    head = torch.stack([t_root_dev.to(torch.int32)])
+    host = torch.cat([head, wins.reshape(-1), kb_dev.reshape(-1)]).cpu().numpy()
+    root_val = float(root_val)
+    stats["device_s"] += time.perf_counter() - t0
+    seg["dispatch_s"] += time.perf_counter() - t0
+    stats["rounds"] += 1
+
+    t_seg = time.perf_counter()
+    if not np.isfinite(root_val):
+        # no feasible root state: keep the host path authoritative
+        stats["fallbacks"] += 1
+        stats["fallback_reason"] = "no_feasible_root"
+        return None
+    stats["fallback_reason"] = ""
+    t_root = int(host[0])
+    n_wins = wins.numel()
+    wins_h = host[1 : 1 + n_wins].reshape(wins.shape)
+    kb_h = host[1 + n_wins :].reshape(kb_dev.shape)
+    # leaf backtrack through the backpointer tables, stage by stage —
+    # _IntStages.backtrack for every leaf at once (int32, bitwise)
+    t_leaf = np.full(L, t_root, dtype=np.int32)
+    js = np.empty((L, wins.shape[0]), dtype=np.int32)
+    rows_i = np.arange(L)
+    t = t_leaf.copy()
+    for s in range(wins.shape[0] - 1, -1, -1):
+        j = wins_h[s, rows_i, t]
+        js[:, s] = j
+        t = (t - kb_h[s, rows_i, j]).astype(np.int32)
+
+    leaf_meta = tuple((None, spec[2].key) for spec in specs)
+    # layout does not pin pitch / leaf names / class layouts (they are
+    # patchable content), so the short-circuit key carries them explicitly
+    dec_key = (
+        layout,
+        g,
+        names,
+        tuple(tuple(rs) for rs in fstate.row_sigs),
+        leaf_meta,
+        t_root,
+        t_leaf.tobytes(),
+        js.tobytes(),
+    )
+    seg["backtrack_s"] += time.perf_counter() - t_seg
+    t_seg = time.perf_counter()
+    if dec_key == fstate.last_key and fstate.last_solution is not None:
+        # unchanged device decision vector: the previous solution is the
+        # bit-identical answer — skip the host assembly entirely
+        stats["short_circuits"] += 1
+        return fstate.last_solution
+
+    picks: dict[str, tuple[float, float, tuple[float, float]]] = {}
+    total = 0.0
+    spent = 0.0
+    for li, (name, eff, plan, curves_, curve_keys) in enumerate(specs):
+        spends = [
+            float(fstate.keys_desc[li][s][int(js[li, s])])
+            for s in range(len(plan.classes))
+        ]
+        lp, lt, ls = _assemble_plan(plan, curve_keys, curves_, spends, pick_cache)
+        picks.update(lp)
+        total += lt
+        spent += ls
+    sol = MCKPSolution(total_value=total, spent=spent, picks=picks)
+    fstate.last_key = dec_key
+    fstate.last_solution = sol
+    seg["assembly_s"] += time.perf_counter() - t_seg
+    return sol
+
+
+def solve_grouped_fused(
+    groups: Sequence[GroupedOptions],
+    budget: float,
+    *,
+    fstate: FusedState,
+    curve_cache: MutableMapping | None = None,
+    pick_cache: MutableMapping | None = None,
+    plan_cache: MutableMapping | None = None,
+    chain_cache: MutableMapping | None = None,
+    device: str | torch.device | None = None,
+) -> MCKPSolution | None:
+    """Fused device-resident form of :func:`solve_sparse_grouped` on
+    ``device`` (None = the CUDA card).
+
+    Returns the bit-for-bit identical solution, or None to fall back to
+    the host path (off-lattice keys, oversized grids, empty rounds,
+    infeasible roots).  Group/class churn is not a fallback: it patches or
+    compacts the resident banks and solves fused in the same call.
+    """
+    device = resolve_device(device)
+    plan = _leaf_plan(groups, plan_cache)
+    curves_, curve_keys = _class_curves(
+        plan.classes, budget, curve_cache, chain_cache
+    )
+    eff = float(budget)
+    specs = [(None, eff, plan, curves_, curve_keys)]
+    return _fused_run(
+        specs, "flat", pick_cache=pick_cache, fstate=fstate, device=device
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -456,3 +1861,53 @@ def solve_dense_jax_batch(
         spent = sum(c for c, _, _ in picks.values())
         sols.append(MCKPSolution(total_value=total, spent=spent, picks=picks))
     return sols
+
+# ---------------------------------------------------------------------------
+# Exhaustive brute force (Oracle ground truth for small cases)
+# ---------------------------------------------------------------------------
+
+
+def brute_force(options: Sequence[OptionTable], budget: float) -> MCKPSolution:
+    """Exhaustive DFS over the cross product of option sets.
+
+    Exponential — used for the §6.3 Oracle on <= ~10 apps with pruned
+    option sets, and to certify the DP solvers in tests.  A simple
+    optimistic bound (sum of per-app max remaining values) prunes branches.
+    """
+    n = len(options)
+    # optimistic suffix bound
+    suffix_max = np.zeros(n + 1)
+    for i in range(n - 1, -1, -1):
+        suffix_max[i] = suffix_max[i + 1] + float(np.max(options[i].values))
+
+    best = {"total": -1.0, "choice": [0] * n}
+    choice = [0] * n
+
+    def dfs(i: int, used: float, value: float) -> None:
+        if value + suffix_max[i] <= best["total"]:
+            return
+        if i == n:
+            if value > best["total"]:
+                best["total"] = value
+                best["choice"] = list(choice)
+            return
+        opt = options[i]
+        for j in range(opt.k - 1, -1, -1):
+            e = float(opt.costs[j])
+            if used + e > budget + 1e-9:
+                continue
+            choice[i] = j
+            dfs(i + 1, used + e, value + float(opt.values[j]))
+        choice[i] = 0
+
+    dfs(0, 0.0, 0.0)
+    picks: dict[str, tuple[float, float, tuple[float, float]]] = {}
+    for i, opt in enumerate(options):
+        j = best["choice"][i]
+        picks[opt.name] = (
+            float(opt.costs[j]),
+            float(opt.values[j]),
+            (float(opt.caps[j, 0]), float(opt.caps[j, 1])),
+        )
+    spent = sum(c for c, _, _ in picks.values())
+    return MCKPSolution(total_value=best["total"], spent=spent, picks=picks)

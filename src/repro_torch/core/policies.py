@@ -1,7 +1,7 @@
 """Cluster-wide power-distribution policies (paper §5.1), ported part.
 
-This slice ports the EcoShift policy on the dense solvers, the shared
-allocation assembly and the stateful-controller registry.  The heuristic
+This slice ports the EcoShift policy on the sparse and dense solvers, the
+shared allocation assembly and the stateful-controller registry.  The heuristic
 baselines (uniform, DPS, MixedAdaptive), the Oracle and the hierarchical
 policy come with later slices (ROADMAP.md, queue 1).
 """
@@ -57,10 +57,10 @@ def ecoshift(
     """Build per-receiver option curves from the (predicted) surfaces and
     solve the multiple-choice knapsack with the DP of §3.2.2.
 
-    ``solver``: ``"pallas"`` (the CUDA kernel), ``"jax"`` (the plain
-    PyTorch version), both on ``device`` (None = the CUDA card), or
-    ``"dense"`` (numpy).  ``"sparse"``, the reference default, raises until
-    the host sparse solvers are ported.  ``grouped=True`` collapses
+    ``solver``: ``"sparse"`` (the host sparse DP, the default),
+    ``"pallas"`` (the dense CUDA kernel), ``"jax"`` (its plain PyTorch
+    version), both on ``device`` (None = the CUDA card), or ``"dense"``
+    (numpy).  ``grouped=True`` collapses
     receivers sharing (surface identity, baseline) into one behaviour
     class, bitwise equal to the ungrouped path.
     """
@@ -85,8 +85,8 @@ def ecoshift(
         for a in order
     ]
     if solver == "sparse":
-        raise NotImplementedError(mckp.SPARSE_NOT_PORTED)
-    if solver == "dense":
+        sol = mckp.solve_sparse(options, budget)
+    elif solver == "dense":
         sol = mckp.solve_dense(options, budget, unit=unit)
     elif solver in ("jax", "pallas"):
         sol = mckp.solve_dense_jax(

@@ -146,6 +146,62 @@ class Allocation:
         return tot
 
 
+#: canonical set of ``FusedRoundStats.fallback_reason`` values ("" = no
+#: fallback), the ones ``core/mckp.py``'s fused round emits.
+FUSED_FALLBACK_REASONS = frozenset(
+    {"off_lattice", "grid_overflow", "no_feasible_root", "empty"}
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedRoundStats:
+    """Counters of the device-resident fused round path (DESIGN.md §14/§17).
+
+    Snapshot of a fused controller's warm device state: rounds that ran
+    fully on device, host fallbacks (off-lattice keys, oversized grids,
+    infeasible roots — structure changes stay fused since the
+    capacity-slack banks of §17), cold host rebuilds of the resident
+    banks, device-side compactions (layout changes repacked by on-device
+    gather instead of a host rebuild), dirty rows written into the
+    resident banks, rounds that short-circuited host assembly on an
+    unchanged decision vector, the last round's slack occupancy, and
+    cumulative seconds inside the device pipeline (ending with its one
+    device-to-host copy).
+    """
+
+    rounds: int = 0
+    fallbacks: int = 0
+    #: cold host-side bank builds + full uploads (first fused round of a
+    #: shape family; never fired by churn once the banks are resident)
+    rebuilds: int = 0
+    #: device-side bank repacks: layout changes (leaf set / pad growth /
+    #: topology edits) served by a gather of the clean rows plus a
+    #: dirty-row write — the round still runs fused (DESIGN.md §17)
+    compactions: int = 0
+    row_uploads: int = 0
+    short_circuits: int = 0
+    #: most recent round's occupancy of the capacity-slack bank layout:
+    #: max over the padded dims of used/padded (1.0 = slack exhausted,
+    #: the next structural growth compacts into bigger tiers)
+    slack_utilization: float = 0.0
+    device_s: float = 0.0
+    #: why the most recent fused attempt fell back to host ("" = it didn't):
+    #: "off_lattice" | "grid_overflow" | "no_feasible_root" | "empty"
+    #: (the historical "structure_change" fallback is retired — structure
+    #: churn patches or compacts the resident banks and stays fused)
+    fallback_reason: str = ""
+
+    @property
+    def attempts(self) -> int:
+        return self.rounds + self.fallbacks
+
+    @property
+    def fused_fraction(self) -> float:
+        """Share of attempted fused rounds that stayed on device."""
+        n = self.attempts
+        return self.rounds / n if n else 0.0
+
+
 @dataclasses.dataclass
 class EmulationResult:
     """Outcome of one emulated redistribution round."""

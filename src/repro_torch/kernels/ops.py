@@ -1,4 +1,5 @@
-"""Public wrappers of the (max,+) DP stage.
+"""Public wrappers of the (max,+) DP stages, and the fused round's bank
+compaction.
 
 A CUDA tensor launches the hand-written kernel (``mckp_dp``) or raises; a
 CPU tensor takes the plain PyTorch version (``ref``).  Nothing else picks
@@ -26,6 +27,49 @@ def maxplus_conv_batched(dp: torch.Tensor, f: torch.Tensor):
     if dp.is_cuda:
         return _mckp_dp.maxplus_conv_batched(dp, f)
     return _ref.maxplus_conv_batched(dp, f)
+
+
+def maxplus_stage_batched(dp: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor):
+    """Sparse-option (max,+) stage with a first-max backpointer: dp [R, NB],
+    kb [R, K] int32, vb [R, K] of dp's type (float64 in the fused round).
+    Returns (out [R, NB], arg [R, NB] int32)."""
+    if dp.is_cuda:
+        return _mckp_dp.maxplus_stage_batched(dp, kb, vb)
+    return _ref.maxplus_stage_batched(dp, kb, vb)
+
+
+def bank_compact(kb_old, vb_old, src_s, src_l, *, k_pad: int):
+    """Repack the fused round's resident option banks into a new layout.
+
+    ``src_s``/``src_l`` are ``[S_new, L_new]`` integer gather maps into the
+    old ``[S_old, L_old, K_old]`` banks; -1 marks a row with no clean
+    source, which becomes the identity row ``kb = 0 / vb = [0, -inf, ...]``
+    (the caller scatters its content afterwards).  The option axis pads
+    with identity options or truncates to ``k_pad``; a clean row's tail
+    beyond its own options is identity padding, so both are exact.  A plain
+    gather and select on the banks' device (``repro.kernels.ops.bank_compact``
+    is a jnp op, not a Pallas kernel): no value is recomputed, so a
+    gathered row is bitwise the row a host rebuild would upload.
+    """
+    valid = src_s >= 0
+    ss = torch.where(valid, src_s, 0).long()
+    ll = torch.where(valid, src_l, 0).long()
+    kb_g = kb_old[ss, ll]  # [S_new, L_new, K_old]
+    vb_g = vb_old[ss, ll]
+    k_old = kb_old.shape[-1]
+    if k_pad > k_old:
+        kb_g = torch.nn.functional.pad(kb_g, (0, k_pad - k_old))
+        vb_g = torch.nn.functional.pad(vb_g, (0, k_pad - k_old), value=-torch.inf)
+    elif k_pad < k_old:
+        kb_g = kb_g[..., :k_pad]
+        vb_g = vb_g[..., :k_pad]
+    vb_id = torch.full_like(vb_g, -torch.inf)
+    vb_id[..., 0] = 0.0
+    m = valid[..., None]
+    return (
+        torch.where(m, kb_g, torch.zeros_like(kb_g)).contiguous(),
+        torch.where(m, vb_g, vb_id).contiguous(),
+    )
 
 
 def maxplus_scan_batched(f_groups: torch.Tensor, stage_gids: torch.Tensor):

@@ -107,7 +107,9 @@ def test_cpu_route_takes_plain_version_without_launching():
     )
     _assert_bits(out.numpy(), want_out.numpy())
     _assert_bits(arg.numpy(), want_arg.numpy())
-    assert mckp_dp.launches == {"maxplus_conv": 0, "maxplus_conv_batched": 0}
+    assert mckp_dp.launches == {
+        "maxplus_conv": 0, "maxplus_conv_batched": 0, "maxplus_stage_batched": 0
+    }
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -119,10 +121,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_kernel_source_names_the_replaced_tpu_kernels():
-    src = mckp_dp.SOURCE.read_text()
+    src = mckp_dp.SOURCES["maxplus_conv"].read_text()
     assert "maxplus_conv_pallas_batched" in src and "maxplus_conv_pallas" in src
     assert "--use_fast_math" not in " ".join(mckp_dp.NVCC_FLAGS)
-    assert mckp_dp.library_path().parent == mckp_dp.BUILD_DIR
+    assert mckp_dp.library_path("maxplus_conv").parent == mckp_dp.BUILD_DIR
 
 
 # ---------------------------------------------------------------------------

@@ -409,15 +409,11 @@ def test_device_none_needs_a_card(monkeypatch, suites):
 def test_unported_paths_raise(suites):
     _, (apps, surfs) = suites
     sysm = types.SYSTEM_2
-    for kw in ({}, {"solver": "sparse"}, {"solver": "pallas", "fused": True},
-               {"solver": "pallas", "horizon": 4}):
+    for kw in ({"solver": "pallas", "horizon": 4}, {"horizon": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_controller("ecoshift", sysm, device=CPU, **kw)
     with pytest.raises(ValueError, match="unknown solver"):
         make_controller("ecoshift", sysm, solver="cuda", device=CPU)
-    sim = ClusterSim.build(sysm, apps, surfs, n_nodes=4, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sim.run(Scenario.constant(1), "ecoshift")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ClusterSim.build(sysm, apps, surfs, n_nodes=4, device=CPU, topology=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -425,12 +421,13 @@ def test_unported_paths_raise(suites):
     ctrl = make_controller("ecoshift", sysm, solver="dense", device=CPU)
     assert isinstance(ctrl.config, tcontroller.ControllerConfig)
     for call in (lambda: ctrl.notify_actuation(None), ctrl.snapshot,
-                 lambda: ctrl.allocate_hierarchical(None, 0.0, None)):
+                 lambda: ctrl.allocate_hierarchical(None, 0.0, None),
+                 lambda: ctrl.set_budget_outlook([1.0])):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-    _, tg = _random_groups(np.random.default_rng(1), 100.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mckp.solve_grouped(tg, 100.0)
+        mckp._fused_run([], "leaf_root", pick_cache=None,
+                        fstate=mckp.FusedState(), device=torch.device(CPU))
 
 
 # ---------------------------------------------------------------------------
