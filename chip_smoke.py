@@ -30,7 +30,22 @@ Phases, each of which exits non-zero on failure before the last line:
     round by round, every solved round on the device with no fallback, and
     the stage kernel launched once per padded stage of every fused round;
     then the device busy share of one fused round;
- 8. one JSON line listing each ported kernel, then the result line.
+ 8. the serving kernels (RMSNorm, flash attention, flash decode) against
+    their plain PyTorch versions on the card, in bf16 and float32, at the
+    serving path's shapes, a sliding-window and a softcap shape and ragged
+    decode lengths that include 1, each with its time, the plain version's,
+    its bound and one library call's (``torch.nn.functional.rms_norm``,
+    ``scaled_dot_product_attention``; the port never calls them);
+ 9. the serving path: granite-3-2b at its full config (40 layers, bf16
+    compute, float32 weights drawn from a seed) through
+    ``ServeEngine.generate`` for 8 requests of 512 prompt tokens and 32
+    greedy tokens (cache padded to 1024), with prefill seconds, decode
+    seconds per token, tokens/s and the kernels' launch counts against what
+    the path implies; then the same prompts on the plain route on the card,
+    teacher-forced with the kernel route's tokens, logits held within
+    LOGIT_REL_TOL, and the share of greedy tokens the two routes agree on;
+    then the device busy share of one prefill and one decode step;
+10. one JSON line listing each ported kernel, then the result line.
 
 It exits 2 without printing a result when no CUDA card is present or when
 the port's sources are not beside it.
@@ -58,6 +73,24 @@ PEAK_BYTES = 3.35e12
 # round 0 of the kernel path against the float64 numpy DP: the float32 DP
 # sums ~200 values below 1, so its total may differ by ~200 ulp(100)
 REL_TOL_F64 = 1e-4
+# the serving path: granite-3-2b at its full config, 8 requests of 512
+# prompt tokens, 32 greedy tokens each, the cache padded to 1024 slots
+SERVE_ARCH = "granite-3-2b"
+SERVE_BATCH = 8
+SERVE_PROMPT = 512
+SERVE_GEN = 32
+SERVE_S_MAX = 1024
+PEAK_BF16_OPS = 989e12  # H100 SXM tensor cores, dense
+# serving kernels against their plain versions, elementwise rtol = atol =
+# tol (tests/test_kernels.py's): float32 sums in another order (~1e-6);
+# bf16 may round the float32 result to the neighbouring value (2^-8)
+KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# kernel route against the plain route on the card, teacher-forced, as
+# max |logit difference| / max |logit| per step: the routes differ only by
+# the kernels' float32 summation order, which moves a bf16 activation by one
+# rounding (2^-8) now and then; 40 layers carry that to the bf16 logits,
+# whose own rounding is 2^-8 of the largest, so a few such steps show.
+LOGIT_REL_TOL = 5e-2
 
 
 class SmokeFailure(Exception):
@@ -532,6 +565,411 @@ def fused_busy_share_phase(dev, fresh_sim) -> None:
               "(the profiler recorded no device time)")
 
 
+# ---------------------------------------------------------------------------
+# The serving path: granite-3-2b prefill + greedy decode
+# ---------------------------------------------------------------------------
+
+
+def _tol_ok(got, want, tol: float) -> tuple[bool, float]:
+    """Elementwise |got - want| <= tol + tol * |want| (rtol = atol = tol, as
+    tests/test_kernels.py states them), and the max absolute error."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return bool((diff <= tol + tol * w.abs()).all()), float(diff.max())
+
+
+def _attn_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs that the causal bound and the window let through,
+    for one (sequence, head)."""
+    import numpy as np
+
+    i = np.arange(sq)[:, None]
+    j = np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), dtype=bool)
+    if causal:
+        ok &= i >= j
+    if window is not None:
+        ok &= i - j < window
+    return int(ok.sum())
+
+
+def _peak_ops(dtype) -> float:
+    import torch
+
+    return PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+
+
+def _bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def serving_kernel_phase(dev) -> dict:
+    """Serving phase (a): the RMSNorm, flash attention and flash decode
+    kernels against their plain versions on the card, in bf16 and float32,
+    at the serving path's shapes, a sliding-window shape, a softcap shape
+    and ragged decode lengths that include 1; each with its time, the plain
+    version's, its bound and one library call's as a yardstick.  Returns
+    the bf16 stats at the path's shapes (prefill for RMSNorm)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    d, hq, hkv, hd = 2048, 32, 8, 64  # granite-3-2b
+    b, p, s_max = SERVE_BATCH, SERVE_PROMPT, SERVE_S_MAX
+    stats = {}
+
+    def report(kind, label, dtype, ok, err, tol, ms, plain_ms, lib_ms, lib_err, bound):
+        bound_ms, bound_by = bound
+        check(ok, f"{kind} kernel != plain version for {label} {dtype} (max_abs_err={err})")
+        lib = (f"library_ms={lib_ms:.6f} library_max_abs_err={lib_err}" if lib_ms is not None
+               else "library_ms=null (no library call takes this window or softcap)")
+        print(
+            f"{kind} kernel {label} {dtype}: max_abs_err={err} (tol rtol=atol={tol}) "
+            f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
+            f"roofline_share={bound_ms / ms:.4f} plain_over_kernel={plain_ms / ms:.2f} {lib}"
+        )
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = KERNEL_TOL[str(dtype).split(".")[-1]]
+        isz = torch.empty((), dtype=dtype).element_size()
+        # RMSNorm: prefill rows, decode rows, a width that is no multiple of 8
+        for label, shape in (("prefill [8*512, 2048]", (b * p, d)),
+                             ("decode [8, 1, 2048]", (b, 1, d)),
+                             ("ragged [3, 100]", (3, 100))):
+            x = randn(*shape, dtype=dtype)
+            scale = 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+            ok, err = _tol_ok(rmsnorm(x, scale), ref.rmsnorm(x, scale), tol)
+            w = (1.0 + scale).to(dtype)
+            lib_err = _max_abs_err(F.rms_norm(x, (shape[-1],), w, 1e-6).float(),
+                                   ref.rmsnorm(x, scale).float())
+            n = x.numel()
+            st = report(
+                "rmsnorm", label, dtype, ok, err, tol,
+                _cuda_ms(lambda: rmsnorm(x, scale), iters=50),
+                _cuda_ms(lambda: ref.rmsnorm(x, scale), iters=20),
+                _cuda_ms(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6), iters=50), lib_err,
+                _bound(4.0 * n, 2.0 * isz * n + 4.0 * shape[-1], PEAK_F32_OPS),
+            )
+            if dtype == torch.bfloat16 and label.startswith("prefill"):
+                stats["rmsnorm"] = st
+        # flash attention: the prefill shape, a window, a softcap
+        for label, bb, causal, window, cap in (
+            ("prefill q [8, 512, 32, 64]", b, True, None, None),
+            ("window 128, q [2, 512, 32, 64]", 2, True, 128, None),
+            ("softcap 30, q [2, 512, 32, 64]", 2, True, None, 30.0),
+        ):
+            q = randn(bb, p, hq, hd, dtype=dtype)
+            k = randn(bb, p, hkv, hd, dtype=dtype)
+            v = randn(bb, p, hkv, hd, dtype=dtype)
+
+            def kern():
+                return flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+
+            def plain():
+                return ref.mha_reference(q, k, v, causal=causal, window=window,
+                                         logit_softcap=cap)
+
+            want = plain()
+            ok, err = _tol_ok(kern(), want, tol)
+            lib_ms = lib_err = None
+            if window is None and cap is None:
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+                def lib():
+                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)
+
+                lib_err = _max_abs_err(lib().transpose(1, 2).float(), want.float())
+                lib_ms = _cuda_ms(lib, iters=50)
+            pairs = _attn_pairs(p, p, causal, window)
+            st = report(
+                "flash_attention", label, dtype, ok, err, tol,
+                _cuda_ms(kern, iters=20), _cuda_ms(plain, iters=5),
+                lib_ms, lib_err,
+                _bound(4.0 * bb * hq * hd * pairs,
+                       isz * (2 * q.numel() + k.numel() + v.numel()), _peak_ops(dtype)),
+            )
+            if dtype == torch.bfloat16 and label.startswith("prefill"):
+                stats["flash_attention"] = st
+        # flash decode: the decode shape, ragged lengths with 1 under a
+        # window and under a softcap
+        for label, lens, window, cap in (
+            ("decode q [8, 32, 64], cache [8, 1024, 8, 64], lengths 513-543",
+             np.linspace(p + 1, p + SERVE_GEN - 1, b).round().astype(int), None, None),
+            ("window 128, ragged lengths with 1", [1, 2, 100, 129, 512, 700, 1023, 1024],
+             128, None),
+            ("softcap 30, ragged lengths with 1", [1, 3, 64, 200, 513, 600, 900, 1024],
+             None, 30.0),
+        ):
+            q = randn(b, hq, hd, dtype=dtype)
+            kc = randn(b, s_max, hkv, hd, dtype=dtype)
+            vc = randn(b, s_max, hkv, hd, dtype=dtype)
+            lengths = torch.tensor(list(lens), dtype=torch.int32, device=dev)
+
+            def kern():
+                return decode_attention(q, kc, vc, lengths, window=window, softcap=cap)
+
+            def plain():
+                return ref.decode_attention_reference(q, kc, vc, lengths, window=window,
+                                                      softcap=cap)
+
+            want = plain()
+            ok, err = _tol_ok(kern(), want, tol)
+            lib_ms = lib_err = None
+            if window is None and cap is None:
+                qt = q[:, :, None, :].contiguous()
+                kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+                mask = (torch.arange(s_max, device=dev)[None, :] < lengths[:, None])[:, None, None]
+
+                def lib():
+                    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                          enable_gqa=True)
+
+                lib_err = _max_abs_err(lib()[:, :, 0].float(), want.float())
+                lib_ms = _cuda_ms(lib, iters=50)
+            valid = sum(min(int(n), s_max) - (max(0, int(n) - window) if window else 0)
+                        for n in lens)
+            st = report(
+                "decode_attention", label, dtype, ok, err, tol,
+                _cuda_ms(kern, iters=50), _cuda_ms(plain, iters=20),
+                lib_ms, lib_err,
+                _bound(4.0 * hq * hd * valid,
+                       isz * (2 * q.numel() + 2 * hkv * hd * valid) + 4 * b, _peak_ops(dtype)),
+            )
+            if dtype == torch.bfloat16 and label.startswith("decode"):
+                stats["decode_attention"] = st
+    return stats
+
+
+class _PlainRoute:
+    """Within this block the model's RMSNorm and attention take their plain
+    PyTorch versions on the card: the serving path's kernel wrappers in
+    ``repro_torch.kernels.ops`` are swapped for ``ref``'s functions."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self._saved = {n: getattr(ops, n) for n in
+                       ("rmsnorm", "flash_attention", "decode_attention")}
+        ops.rmsnorm = lambda x, scale, *, eps=1e-6: ref.rmsnorm(x, scale, eps)
+        ops.flash_attention = lambda q, k, v, *, causal=True, window=None, softcap=None: (
+            ref.mha_reference(q, k, v, causal=causal, window=window, logit_softcap=softcap))
+        ops.decode_attention = ref.decode_attention_reference
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for n, fn in self._saved.items():
+            setattr(ops, n, fn)
+
+
+def serving_main_path_phase(dev, cfg, *, batch: int, prompt: int, gen: int,
+                            s_max: int) -> dict:
+    """Serving phase (b): ``cfg`` through ``ServeEngine.generate`` with
+    seeded weights, ``batch`` random prompts of ``prompt`` tokens, ``gen``
+    greedy tokens; launch counts against what the path implies; then the
+    same prompts on the plain route on the card, teacher-forced with the
+    kernel route's tokens, logits held within LOGIT_REL_TOL.  Returns the
+    serving kernels' launches on the kernel route."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ServeEngine, pad_cache_to
+
+    gen_ = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(gen_)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen_, device=dev)
+    _sync(dev)
+    n_params = sum(t.numel() for t in model.parameters())
+    print(f"serving model {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab} (padded {cfg.padded_vocab}), {n_params} parameters in "
+          f"{cfg.param_dtype}, compute {cfg.dtype}; init_s={time.perf_counter() - t0:.3f}")
+    engine = ServeEngine(model=model, s_max=s_max)
+    engine.generate({"tokens": tokens[:, :16]}, n_steps=2)  # warm-up: weight casts, libraries
+    _sync(dev)
+
+    captured = {"steps": []}
+    inner_prefill, inner_decode = model.prefill, model.decode_step
+
+    def prefill(b):
+        _sync(dev)
+        t = time.perf_counter()
+        lg, cache = inner_prefill(b)
+        _sync(dev)
+        captured["prefill_s"] = time.perf_counter() - t
+        captured["prefill"] = lg.clone()
+        return lg, cache
+
+    def decode_step(b, cache, lengths):
+        lg, cache = inner_decode(b, cache, lengths)
+        captured["steps"].append(lg.clone())
+        return lg, cache
+
+    model.prefill, model.decode_step = prefill, decode_step
+    try:
+        build.reset_launches()
+        t = time.perf_counter()
+        out = engine.generate({"tokens": tokens}, n_steps=gen)
+        _sync(dev)
+        total_s = time.perf_counter() - t
+        launches = dict(build.launches)
+    finally:
+        del model.prefill, model.decode_step
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    decode_s = total_s - captured["prefill_s"]
+    n = cfg.n_layers
+    want = {"rmsnorm": (2 * n + 1) * gen, "flash_attention": n,
+            "decode_attention": n * (gen - 1)}
+    print(
+        f"serving main path: {batch} x {prompt} prompt tokens, {gen} generated, s_max {s_max}: "
+        f"prefill_s={captured['prefill_s']:.4f} decode_s_per_token="
+        f"{decode_s / (gen - 1):.5f} total_s={total_s:.4f} "
+        f"tokens_per_s={batch * gen / total_s:.1f} decode_tokens_per_s="
+        f"{batch * (gen - 1) / decode_s:.1f} peak_memory_gb={peak_gb:.2f} launches={launches}"
+    )
+    for name, count in want.items():
+        check(launches[name] == count, f"{name} launches {launches[name]} != {count}")
+    check(all(launches[name] == 0 for name in launches if name not in want),
+          "the serving path launched a (max,+) kernel")
+    check(out.shape == (batch, gen), f"generated shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()), "token out of range")
+    lgs = [captured["prefill"], *captured["steps"]]
+    check(len(lgs) == gen, "one logits row per generated token")
+    check(all(bool(torch.isfinite(lg).all()) for lg in lgs), "non-finite logits")
+
+    # the plain route, teacher-forced with the kernel route's tokens
+    agree = 0
+    build.reset_launches()
+    with _PlainRoute():
+        lg, cache = model.prefill({"tokens": tokens})
+        cache = pad_cache_to(cache, model.cache_shapes(batch, s_max))
+        lengths = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+        rels = []
+        for step in range(gen):
+            if step:
+                lg, cache = model.decode_step({"tokens": out[:, step - 1 : step]}, cache,
+                                              lengths)
+                lengths = lengths + 1
+            want_lg = lg.float()
+            rel = float((lgs[step].float() - want_lg).abs().max() / want_lg.abs().max())
+            rels.append(rel)
+            agree += int((want_lg.argmax(-1) == out[:, step]).sum())
+    _sync(dev)
+    check(all(v == 0 for v in build.launches.values()), "the plain route launched a kernel")
+    worst = max(rels)
+    print(
+        f"serving plain route, teacher-forced: logits rel err prefill={rels[0]:.3e} "
+        f"decode max={max(rels[1:]):.3e} mean={sum(rels[1:]) / (gen - 1):.3e} "
+        f"(tol {LOGIT_REL_TOL}) greedy_token_agreement={agree / (batch * gen):.4f} "
+        f"({agree}/{batch * gen})"
+    )
+    check(worst <= LOGIT_REL_TOL, f"kernel route logits differ from the plain route: {worst}")
+    if dev.type == "cuda":
+        serving_profile(dev, model, tokens, s_max)
+    return {name: launches[name] for name in want}
+
+
+def serving_profile(dev, model, tokens, s_max: int) -> None:
+    """Device busy share and the top device kernels of one prefill and one
+    decode step of the kernel route, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import pad_cache_to
+
+    batch, prompt = tokens.shape
+
+    def show(label, prof, wall):
+        by_kernel: dict[str, float] = {}
+        n_device = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+                n_device += 1
+        busy = sum(by_kernel.values()) / 1e6
+        if not busy:
+            print(f"profiled {label}: wall_s={wall:.5f} busy_share=not measured "
+                  "(the profiler recorded no device time)")
+            return
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        print(
+            f"profiled {label}: wall_s={wall:.5f} device_busy_s={busy:.5f} "
+            f"busy_share={busy / wall:.4f} device_events={n_device} top_device_us_and_share="
+            + json.dumps({k[:70]: [round(v, 1), round(v / 1e6 / wall, 4)] for k, v in top})
+        )
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    show(f"prefill ({batch} x {prompt})", prof, wall)
+    cache = pad_cache_to(cache, model.cache_shapes(batch, s_max))
+    lengths = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+    nxt = lg.argmax(-1)[:, None]
+    model.decode_step({"tokens": nxt}, cache, lengths)  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.decode_step({"tokens": nxt}, cache, lengths + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    show(f"decode step (batch {batch}, lengths {prompt + 1})", prof, wall)
+    with _CountOps() as ops_count:
+        model.decode_step({"tokens": nxt}, cache, lengths + 2)
+    print(f"decode step: {ops_count.n} PyTorch operations dispatched "
+          f"({ops_count.n / len(model.layers):.1f} a layer)")
+
+
+class _CountOps:
+    """Counts the ATen operations PyTorch dispatches inside the block (the
+    host work of a step; a kernel wrapper's ctypes call is not one)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def main() -> int:
     import torch
 
@@ -542,6 +980,7 @@ def main() -> int:
         print("chip_smoke: the port's sources are not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
     from repro_torch.cluster import ClusterSim, Scenario
     from repro_torch.core import surfaces, types
     from repro_torch.kernels import mckp_dp
@@ -599,24 +1038,37 @@ def main() -> int:
     launches["maxplus_stage_batched"] = fused_main_path_phase(dev, fresh_fused_sim, scen_f)
     fused_busy_share_phase(dev, fresh_fused_sim)
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    stats.update(serving_kernel_phase(dev))
+    launches.update(serving_main_path_phase(
+        dev, configs.get_config(SERVE_ARCH), batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+        gen=SERVE_GEN, s_max=SERVE_S_MAX,
+    ))
+
     sources = {
         "maxplus_conv_batched": "maxplus_conv",
         "maxplus_conv": "maxplus_conv",
         "maxplus_stage_batched": "maxplus_stage",
+        "rmsnorm": "rmsnorm",
+        "flash_attention": "flash_attention",
+        "decode_attention": "decode_attention",
     }
     replaces = {
         "maxplus_conv_batched": "src/repro/kernels/mckp_dp.py:194",
         "maxplus_conv": "src/repro/kernels/mckp_dp.py:247",
         "maxplus_stage_batched": "src/repro/kernels/mckp_dp.py:126",
+        "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+        "flash_attention": "src/repro/kernels/flash_attention.py:114",
+        "decode_attention": "src/repro/kernels/decode_attention.py:96",
     }
     kernels = []
-    for name in ("maxplus_conv_batched", "maxplus_conv", "maxplus_stage_batched"):
+    for name in replaces:
         check(launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": str(mckp_dp.SOURCES[sources[name]].relative_to(ROOT)),
             "replaces": replaces[name], "launches": launches[name],
-            **stats[name], "library_ms": None,
+            "library_ms": None, **stats[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,21 +1,25 @@
 """Carrying state into the port.
 
-The port's state is the cluster and its option tables, not model weights:
-
  * a node table read from the JAX package's ``NodeTable`` columns (as
    numpy arrays) becomes the port's ``NodeTable``, so a port sim can
    continue a reference sim's cluster;
  * behaviour classes read from the JAX package's ``GroupedOptions``
    (option ``costs``, ``values``, ``caps`` as numpy arrays, member names as
    strings) become the port's ``OptionTable``s and ``GroupedOptions``, so
-   one set of groups feeds both packages' solvers.
+   one set of groups feeds both packages' solvers;
+ * a JAX ``Model.init`` parameter tree (numpy leaves) becomes the port
+   ``Model``'s state, and a JAX prefill/decode cache tree the port's cache
+   dict: the stacked ``[n_units, ...]`` scan leaves are unstacked into one
+   entry per layer, every other layout (``[d, h, k]``, ``[h, k, d]``, ...)
+   is kept, so one set of weights serves both packages.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.cluster.sim import NodeTable
 from repro_torch.core.curves import OptionTable
@@ -91,3 +95,92 @@ def grouped_options_from_arrays(
         )
         for name, costs, values, caps, members in groups
     ]
+
+
+# ---------------------------------------------------------------------------
+# Model weights and KV caches
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree: dict[str, Any], prefix: str) -> dict[str, Any]:
+    out = {}
+    for key, leaf in tree.items():
+        name = f"{prefix}.{key}" if prefix else key
+        if isinstance(leaf, dict):
+            out.update(_flatten(leaf, name))
+        elif leaf is not None:
+            out[name] = leaf
+    return out
+
+
+def _unstack(stack: dict[str, Any], cfg) -> dict[str, np.ndarray]:
+    """``{"units": {"l{i}": ...[n_units, ...]}, "tail": {"t{i}": ...}}`` ->
+    ``layers.{j}.<path>``, layer ``j = r * len(unit) + i`` for unit ``r``
+    and ``n_units * len(unit) + i`` for tail layer ``i``."""
+    unit, n_units, _ = cfg.scan_pattern()
+    out = {}
+    for name, leaf in _flatten(stack.get("units", {}), "").items():
+        li, path = name.split(".", 1)
+        for r in range(n_units):
+            out[f"layers.{r * len(unit) + int(li[1:])}.{path}"] = np.array(leaf[r])
+    for name, leaf in _flatten(stack.get("tail", {}), "").items():
+        ti, path = name.split(".", 1)
+        out[f"layers.{n_units * len(unit) + int(ti[1:])}.{path}"] = np.array(leaf)
+    return out
+
+
+def model_state_from_tree(tree: dict[str, Any], cfg) -> dict[str, np.ndarray]:
+    """A JAX ``Model.init`` tree (numpy leaves) -> the port ``Model``'s
+    state-dict names and arrays (copied)."""
+    if "shared_attn" in tree["stack"]:
+        raise NotImplementedError("zamba2's shared attention block (ROADMAP.md §1 item 7)")
+    state = _unstack(tree["stack"], cfg)
+    for part in ("embed", "final_ln"):
+        state.update({k: np.array(v) for k, v in _flatten(tree[part], part).items()})
+    return state
+
+
+def tree_from_model_state(state: dict[str, Any], cfg) -> dict[str, Any]:
+    """The inverse of :func:`model_state_from_tree`: the port's state (numpy
+    arrays or tensors) -> the JAX ``Model.init`` tree layout, scan leaves
+    stacked again."""
+    unit, n_units, tail = cfg.scan_pattern()
+    arrays = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v) for k, v in state.items()}
+
+    def nest(names: dict[str, np.ndarray]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for name, leaf in names.items():
+            *path, last = name.split(".")
+            node = out
+            for p in path:
+                node = node.setdefault(p, {})
+            node[last] = leaf
+        return out
+
+    def layer(j: int) -> dict[str, np.ndarray]:
+        pre = f"layers.{j}."
+        return {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)}
+
+    stack: dict[str, Any] = {"tail": {}}
+    if n_units:
+        stack["units"] = {}
+        for i in range(len(unit)):
+            rows = [layer(r * len(unit) + i) for r in range(n_units)]
+            stack["units"][f"l{i}"] = nest({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+    for i in range(len(tail)):
+        stack["tail"][f"t{i}"] = nest(layer(n_units * len(unit) + i))
+    top = nest({k: v for k, v in arrays.items() if not k.startswith("layers.")})
+    return {"stack": stack, **top}
+
+
+def load_model_params(model, tree: dict[str, Any]) -> None:
+    """Copy a JAX ``Model.init`` tree (numpy leaves) into ``model`` (every
+    parameter must be present)."""
+    state = model_state_from_tree(tree, model.cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+
+
+def cache_from_tree(cache: dict[str, Any], cfg) -> dict[str, np.ndarray]:
+    """A JAX prefill/decode cache tree (numpy leaves) -> the port's cache
+    names (``layers.{i}.k`` / ``.v``) and arrays."""
+    return _unstack(cache, cfg)

@@ -1,0 +1,61 @@
+"""CUDA launch of the prefill flash-attention kernel
+(``csrc/flash_attention.cu``).
+
+Replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention``; its plain version is
+:func:`repro_torch.kernels.ref.mha_reference`.  The wrapper checks device,
+type and shape, raises on what the kernel does not take, and adds one to
+``launches["flash_attention"]`` per launch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import aligned, check, launches, library
+
+_ENTRY = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """GQA attention on the card: query head ``h`` reads KV head
+    ``h // (Hq // Hkv)``.  Returns [B, Sq, Hq, D] in q's type."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"q/k/v must lie on one CUDA device, got {q.device} {k.device}")
+    entry = _ENTRY.get(q.dtype)
+    if entry is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share bfloat16 or float32, got {q.dtype} {k.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if not (0 < b <= 65535 and 0 < hq <= 65535 and 0 < sq and 0 < skv):
+        raise ValueError(f"unsupported shape q={tuple(q.shape)} k={tuple(k.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    q, k, v = aligned(q), aligned(k), aligned(v)
+    out = torch.empty_like(q)
+    lib = library("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, skv, hq, hkv, d, int(causal), window or 0, softcap or 0.0, stream,
+        )
+    check(lib, "flash_attention", err)
+    launches["flash_attention"] += 1
+    return out

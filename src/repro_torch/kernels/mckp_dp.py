@@ -8,149 +8,26 @@ Two sources under ``csrc/``, each replacing Pallas TPU kernels of
  * ``maxplus_stage.cu`` — the sparse-option stage with a first-max
    backpointer (``maxplus_stage_pallas_batched``), float64 or float32.
 
-Each is compiled for ``sm_90a`` by ``nvcc`` into its own shared library
-with a plain C interface and called through ``ctypes``, at first use, into
-``_build/`` beside this module (listed in ``.gitignore``), keyed by the
-source's content hash; nothing is built or loaded at import, so the CPU
-tests import this module freely.  :func:`build` starts one ``nvcc`` per
-source, all together.
-
-Each wrapper counts its launches in :data:`launches` (one per kernel
-launch, nowhere else), so a run can show that its path went through the
-kernel.
+The build, the loading and the launch counts live in :mod:`build`
+(re-exported here); each wrapper adds one to its counter in
+:data:`launches` per kernel launch, and nowhere else.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-
 import torch
 
-#: library name -> CUDA source
-SOURCES = {
-    "maxplus_conv": Path(__file__).parent / "csrc" / "maxplus_conv.cu",
-    "maxplus_stage": Path(__file__).parent / "csrc" / "maxplus_stage.cu",
-}
-BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
+from repro_torch.kernels.build import (  # noqa: F401  (re-exported)
+    BUILD_DIR,
+    NVCC_FLAGS,
+    SOURCES,
+    build,
+    check,
+    launches,
+    library,
+    library_path,
+    reset_launches,
 )
-
-#: wrapper name -> kernel launches since the last reset
-launches: dict[str, int] = {
-    "maxplus_conv": 0,
-    "maxplus_conv_batched": 0,
-    "maxplus_stage_batched": 0,
-}
-
-_libs: dict[str, ctypes.CDLL] = {}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return nvcc
-
-
-def library_path(name: str) -> Path:
-    """Build output of source ``name`` (keyed by its content hash)."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def build(names=None) -> dict[str, str]:
-    """Compile the kernel libraries ``names`` (default: all), one ``nvcc``
-    per source, started together.  Returns name -> nvcc's output (the
-    ``-Xptxas -v`` register/shared-memory summary).  Each writes to a
-    temporary file first and is renamed into place, so concurrent builds
-    never load a torn file."""
-    names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = {}
-    try:
-        for name in names:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
-                stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT,
-                text=True,
-            )
-            jobs[name] = (proc, tmp)
-        logs = {}
-        for name, (proc, tmp) in jobs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{out}"
-                )
-            os.replace(tmp, library_path(name))
-            logs[name] = out
-        return logs
-    finally:
-        for proc, tmp in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-#: library name -> (C entry -> argtypes), every entry returning int
-_ENTRIES = {
-    "maxplus_conv": {"maxplus_conv_batched": [_P, _P, _P, _P, _I, _I, _P]},
-    "maxplus_stage": {
-        "maxplus_stage_batched_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "maxplus_stage_batched_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    },
-}
-
-
-def _library(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        for entry, argtypes in _ENTRIES[name].items():
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        err_fn = getattr(lib, f"{name}_error_string")
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return lib
-
-
-def _check(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
 def _launch(dp: torch.Tensor, f: torch.Tensor, counter: str):
@@ -168,14 +45,14 @@ def _launch(dp: torch.Tensor, f: torch.Tensor, counter: str):
     f = f.contiguous()
     out = torch.empty_like(dp)
     arg = torch.empty((rows, nb), dtype=torch.int32, device=dp.device)
-    lib = _library("maxplus_conv")
+    lib = library("maxplus_conv")
     with torch.cuda.device(dp.device):
         stream = torch.cuda.current_stream(dp.device).cuda_stream
         err = lib.maxplus_conv_batched(
             dp.data_ptr(), f.data_ptr(), out.data_ptr(), arg.data_ptr(),
             rows, nb, stream,
         )
-    _check(lib, "maxplus_conv", err)
+    check(lib, "maxplus_conv", err)
     launches[counter] += 1
     return out, arg
 
@@ -226,13 +103,13 @@ def maxplus_stage_batched(dp: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor):
     vb = vb.contiguous()
     out = torch.empty_like(dp)
     arg = torch.empty((rows, nb), dtype=torch.int32, device=dp.device)
-    lib = _library("maxplus_stage")
+    lib = library("maxplus_stage")
     with torch.cuda.device(dp.device):
         stream = torch.cuda.current_stream(dp.device).cuda_stream
         err = getattr(lib, entry)(
             dp.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
             arg.data_ptr(), rows, nb, k, stream,
         )
-    _check(lib, "maxplus_stage", err)
+    check(lib, "maxplus_stage", err)
     launches["maxplus_stage_batched"] += 1
     return out, arg

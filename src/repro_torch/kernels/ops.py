@@ -1,8 +1,10 @@
-"""Public wrappers of the (max,+) DP stages, and the fused round's bank
-compaction.
+"""Public wrappers of the port's kernels: the (max,+) DP stages, the fused
+round's bank compaction, and the serving path's RMSNorm, prefill attention
+and decode attention.
 
-A CUDA tensor launches the hand-written kernel (``mckp_dp``) or raises; a
-CPU tensor takes the plain PyTorch version (``ref``).  Nothing else picks
+A CUDA tensor launches the hand-written kernel (``mckp_dp``, ``rmsnorm``,
+``flash_attention``, ``decode_attention``) or raises; a CPU tensor takes
+the plain PyTorch version (``ref``).  Nothing else picks
 the route, and nothing falls back.
 """
 
@@ -10,8 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mckp_dp as _mckp_dp
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rmsnorm
 
 
 def maxplus_conv(dp: torch.Tensor, f: torch.Tensor):
@@ -95,3 +100,30 @@ def maxplus_scan(f_groups: torch.Tensor, stage_gids: torch.Tensor):
     (dp_final [NB], arg [N, NB]) through :func:`maxplus_scan_batched`."""
     dp, args = maxplus_scan_batched(f_groups[None], stage_gids[None])
     return dp[0], args[0]
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """Fused RMSNorm over the trailing axis (float32 statistics, the result
+    in x's type)."""
+    if x.is_cuda:
+        return _rmsnorm.rmsnorm(x, scale, eps=eps)
+    return _ref.rmsnorm(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
+    """GQA attention for prefill: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D]."""
+    if q.is_cuda:
+        return _flash.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    return _ref.mha_reference(q, k, v, causal=causal, window=window, logit_softcap=softcap)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, softcap=None, window=None):
+    """Flash-decode GQA attention of one token per sequence over a KV cache
+    [B, S, Hkv, D] with per-sequence ``lengths``."""
+    if q.is_cuda:
+        return _decode.decode_attention(
+            q, k_cache, v_cache, lengths, softcap=softcap, window=window
+        )
+    return _ref.decode_attention_reference(
+        q, k_cache, v_cache, lengths, softcap=softcap, window=window
+    )

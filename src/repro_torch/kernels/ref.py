@@ -4,7 +4,8 @@ Each function here is the semantic ground truth its CUDA kernel is held
 against on the card and the path a kernel wrapper takes for CPU tensors;
 the dense convolution is also the ``"jax"`` backend of the dense solvers
 (the name is kept from the JAX package, where it selects the pure-jnp
-path).
+path).  The serving path's three (RMSNorm, prefill attention, decode
+attention) are the JAX package's oracles of its Pallas kernels.
 """
 
 from __future__ import annotations
@@ -84,3 +85,92 @@ def maxplus_stage_batched(
         out[:, b0 : b0 + len(b)] = cand.gather(1, a[:, None, :])[:, 0, :]
         arg[:, b0 : b0 + len(b)] = a.to(torch.int32)
     return out, arg
+
+
+# ---------------------------------------------------------------------------
+# The serving path: RMSNorm and attention (repro/kernels/ref.py:56-126)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the trailing axis, float32 statistics, the result in x's
+    type: ``repro.kernels.ref.rmsnorm``."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def mha_reference(
+    q: torch.Tensor,  # [B, Tq, Hq, D]
+    k: torch.Tensor,  # [B, Tk, Hkv, D]
+    v: torch.Tensor,  # [B, Tk, Hkv, D]
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Grouped-query attention, float32 softmax: ``repro.kernels.ref.
+    mha_reference``.  ``window`` lets each query see at most the previous
+    ``window`` keys; ``q_offset`` places the queries at absolute positions
+    [q_offset, q_offset + Tq) against keys [0, Tk)."""
+    b, tq, hq, d = q.shape
+    _, tk, hkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    groups = hq // hkv
+    qf = q.to(torch.float32).reshape(b, tq, hkv, groups, d)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) / torch.sqrt(
+        torch.tensor(float(d), dtype=torch.float32)
+    )
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    qpos = q_offset + torch.arange(tq, device=q.device)
+    kpos = torch.arange(tk, device=q.device)
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    logits = torch.where(mask, logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    return out.reshape(b, tq, hq, d).to(q.dtype)
+
+
+def decode_attention_reference(
+    q: torch.Tensor,  # [B, Hq, D] one new token per sequence
+    k_cache: torch.Tensor,  # [B, S, Hkv, D]
+    v_cache: torch.Tensor,  # [B, S, Hkv, D]
+    lengths: torch.Tensor,  # [B] valid KV lengths
+    *,
+    softcap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token GQA decode with per-sequence lengths:
+    ``repro.kernels.ref.decode_attention_reference``, plus the Pallas decode
+    kernel's ``softcap`` and ``window`` (slot ``j`` is seen where
+    ``lengths[b] - j <= window``)."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    groups = hq // hkv
+    qf = q.to(torch.float32).reshape(b, hkv, groups, d)
+    kf = k_cache.to(torch.float32)
+    vf = v_cache.to(torch.float32)
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, kf) / torch.sqrt(
+        torch.tensor(float(d), dtype=torch.float32)
+    )
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    pos = torch.arange(s, device=q.device)[None, :]
+    length = lengths.to(q.device)[:, None]
+    mask = pos < length  # [B, S]
+    if window is not None:
+        mask &= length - pos <= window
+    logits = torch.where(mask[:, None, None, :], logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, vf)
+    return out.reshape(b, hq, d).to(q.dtype)

@@ -1,0 +1,320 @@
+"""The serving path's three kernels in the port against the JAX package.
+
+The plain PyTorch versions (``repro_torch.kernels.ref``: ``rmsnorm``,
+``mha_reference``, ``decode_attention_reference``) and the wrappers' CPU
+route are held against the JAX package's Pallas kernels run in interpret
+mode and against its oracles (``repro.kernels.ref``), on the same numpy
+inputs, at the shapes of ``tests/test_kernels.py``.  Tolerances, as there:
+float32 ``rtol = atol = 2e-5`` (summation order differs between the
+frameworks), bf16 ``rtol = atol = 2e-2`` (one bf16 rounding of the output,
+~2^-8 relative, on either side).  The reference oracle of decode attention
+has no window and no softcap, so those cases are held against the Pallas
+kernel alone.  ``gpu``-marked tests build the CUDA kernels and hold them
+against the plain versions on the card; they skip without one.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_attention as jdk
+from repro.kernels import flash_attention as jfk
+from repro.kernels import ref as jref
+from repro.kernels import rmsnorm as jrk
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import decode_attention as tdk
+from repro_torch.kernels import flash_attention as tfk
+from repro_torch.kernels import rmsnorm as trk
+
+torch.set_num_threads(1)
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name: str) -> dict:
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(a: np.ndarray, name: str):
+    """The same values as a JAX and a torch array of type ``name`` (both
+    round float32 to bf16 to nearest even, so the bits agree)."""
+    jt, tt = DTYPES[name]
+    return jnp.asarray(a).astype(jt), torch.from_numpy(a).to(tt)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _normal(rng, shape) -> np.ndarray:
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("shape", [(4, 64, 256), (3, 100, 128), (1, 1, 512)])
+def test_rmsnorm_plain_matches_pallas_and_reference(name, shape):
+    rng = np.random.default_rng(sum(shape))
+    x = _normal(rng, shape)
+    scale = 0.1 * _normal(rng, shape[-1:])
+    jx, tx = _pair(x, name)
+    got = ops.rmsnorm(tx, torch.from_numpy(scale))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    want_k = jrk.rmsnorm(jx, jnp.asarray(scale), block_rows=32)
+    want_r = jref.rmsnorm(jx, jnp.asarray(scale))
+    np.testing.assert_allclose(_f32(got), _f32(want_k), **_tol(name))
+    np.testing.assert_allclose(_f32(got), _f32(want_r), **_tol(name))
+
+
+# ---------------------------------------------------------------------------
+# Prefill (flash) attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(seed, b, sq, skv, hq, hkv, d, name):
+    rng = np.random.default_rng(seed)
+    arrays = [_normal(rng, (b, sq, hq, d)), _normal(rng, (b, skv, hkv, d)),
+              _normal(rng, (b, skv, hkv, d))]
+    pairs = [_pair(a, name) for a in arrays]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,d",
+    [
+        (2, 128, 128, 4, 4, 64),  # MHA
+        (1, 128, 128, 8, 2, 64),  # GQA 4x
+        (2, 96, 160, 4, 1, 32),  # MQA, ragged block tails
+    ],
+)
+def test_flash_plain_matches_pallas_and_reference(name, b, sq, skv, hq, hkv, d):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(b * sq + hkv, b, sq, skv, hq, hkv, d, name)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want_k = jfk.flash_attention(jq, jk, jv, causal=True, block_q=64, block_k=64)
+    want_r = jref.mha_reference(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want_k), **_tol(name))
+    np.testing.assert_allclose(_f32(got), _f32(want_r), **_tol(name))
+
+
+@pytest.mark.parametrize("window", [32, 64])
+def test_flash_plain_sliding_window(window):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(window, 1, 128, 128, 4, 4, 32, "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    want_k = jfk.flash_attention(jq, jk, jv, causal=True, window=window, block_q=32, block_k=32)
+    want_r = jref.mha_reference(jq, jk, jv, causal=True, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want_k), **_tol("float32"))
+    np.testing.assert_allclose(_f32(got), _f32(want_r), **_tol("float32"))
+
+
+def test_flash_plain_bidirectional_softcap():
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, 2, 64, 64, 2, 2, 32, "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=False, softcap=30.0)
+    want_k = jfk.flash_attention(jq, jk, jv, causal=False, softcap=30.0, block_q=32, block_k=32)
+    want_r = jref.mha_reference(jq, jk, jv, causal=False, logit_softcap=30.0)
+    np.testing.assert_allclose(_f32(got), _f32(want_k), **_tol("float32"))
+    np.testing.assert_allclose(_f32(got), _f32(want_r), **_tol("float32"))
+
+
+def test_flash_plain_matches_blocked_model_path():
+    """The JAX model computes prefill attention in jnp (blocked_attention);
+    the port's serving path runs the kernel there, so hold the plain
+    version against the blocked path too."""
+    from repro.models import blocks as jblocks
+
+    (jq, jk, jv), (tq, tk, tv) = _qkv(3, 2, 128, 128, 8, 2, 32, "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=48, softcap=20.0)
+    want = jblocks.blocked_attention(jq, jk, jv, causal=True, window=48, softcap=20.0)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+
+
+def _decode_inputs(seed, b, s, hq, hkv, d, name, lengths=None):
+    rng = np.random.default_rng(seed)
+    q, kc, vc = _normal(rng, (b, hq, d)), _normal(rng, (b, s, hkv, d)), _normal(rng, (b, s, hkv, d))
+    if lengths is None:
+        lengths = rng.integers(1, s + 1, (b,))
+    lengths = np.asarray(lengths, np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, name) for a in (q, kc, vc))
+    return (jq, jk, jv, jnp.asarray(lengths)), (tq, tk, tv, torch.from_numpy(lengths))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,d", [(4, 256, 8, 2, 64), (2, 200, 4, 4, 32), (3, 512, 16, 8, 64)]
+)
+def test_decode_plain_matches_pallas_and_reference(name, b, s, hq, hkv, d):
+    j_in, t_in = _decode_inputs(b * s + hq, b, s, hq, hkv, d, name)
+    got = ops.decode_attention(*t_in)
+    assert got.dtype == t_in[0].dtype and got.shape == t_in[0].shape
+    want_k = jdk.decode_attention(*j_in, block_k=64)
+    want_r = jref.decode_attention_reference(*j_in)
+    np.testing.assert_allclose(_f32(got), _f32(want_k), **_tol(name))
+    np.testing.assert_allclose(_f32(got), _f32(want_r), **_tol(name))
+
+
+def test_decode_plain_length_one():
+    j_in, t_in = _decode_inputs(1, 2, 128, 4, 2, 32, "float32", lengths=[1, 1])
+    got = ops.decode_attention(*t_in)
+    want_k = jdk.decode_attention(*j_in, block_k=64)
+    want_r = jref.decode_attention_reference(*j_in)
+    np.testing.assert_allclose(_f32(got), _f32(want_k), **_tol("float32"))
+    np.testing.assert_allclose(_f32(got), _f32(want_r), **_tol("float32"))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("window,softcap", [(32, None), (None, 30.0), (64, 30.0), (1, None)])
+def test_decode_plain_window_softcap_matches_pallas(name, window, softcap):
+    """No reference oracle takes a window or a softcap: the Pallas kernel is
+    the reference here.  Lengths include 1, a full cache and a length
+    shorter than the window."""
+    j_in, t_in = _decode_inputs(
+        7, 4, 256, 8, 2, 64, name, lengths=[1, 256, 20, 131]
+    )
+    got = ops.decode_attention(*t_in, window=window, softcap=softcap)
+    want = jdk.decode_attention(*j_in, window=window, softcap=softcap, block_k=64)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(name))
+
+
+# ---------------------------------------------------------------------------
+# Routes, wrappers and sources
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_route_takes_plain_version_without_launching():
+    build.reset_launches()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(_normal(rng, (3, 64)))
+    s = torch.from_numpy(0.1 * _normal(rng, (64,)))
+    assert torch.equal(ops.rmsnorm(x, s, eps=1e-5), ref.rmsnorm(x, s, 1e-5))
+    (_, (q, k, v)) = _qkv(1, 1, 16, 16, 4, 2, 32, "float32")
+    assert torch.equal(
+        ops.flash_attention(q, k, v, window=4, softcap=5.0),
+        ref.mha_reference(q, k, v, window=4, logit_softcap=5.0),
+    )
+    _, t_in = _decode_inputs(2, 2, 16, 4, 2, 32, "float32")
+    assert torch.equal(
+        ops.decode_attention(*t_in, window=3), ref.decode_attention_reference(*t_in, window=3)
+    )
+    assert all(n == 0 for n in build.launches.values())
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        trk.rmsnorm(x, torch.zeros(64))
+    q = torch.zeros(1, 8, 4, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfk.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="CUDA"):
+        tdk.decode_attention(q[:, 0], q[:, :, :2], q[:, :, :2], torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="bad shapes"):
+        tfk.flash_attention(q, q[:, :, :3], q[:, :, :2])
+
+
+def test_kernel_sources_name_the_replaced_tpu_kernels():
+    for name, pallas in (
+        ("rmsnorm", "src/repro/kernels/rmsnorm.py:27"),
+        ("flash_attention", "src/repro/kernels/flash_attention.py:114"),
+        ("decode_attention", "src/repro/kernels/decode_attention.py:96"),
+    ):
+        src = build.SOURCES[name].read_text()
+        assert pallas in src and "Bound:" in src and "Design:" in src
+        assert "return static_cast<int>(cudaGetLastError());" in src
+        assert "__expf" not in src and "__fdividef" not in src
+        assert build.library_path(name).parent == build.BUILD_DIR
+    assert "--use_fast_math" not in " ".join(build.NVCC_FLAGS)
+    assert set(build.launches) == {
+        "maxplus_conv", "maxplus_conv_batched", "maxplus_stage_batched",
+        "rmsnorm", "flash_attention", "decode_attention",
+    }
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _card(t_in, dev):
+    return [t.to(dev) for t in t_in]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("shape", [(4096, 2048), (8, 2048), (3, 100, 128), (2, 77)])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, name, shape):
+    rng = np.random.default_rng(len(shape))
+    _, x = _pair(_normal(rng, shape), name)
+    s = torch.from_numpy(0.1 * _normal(rng, shape[-1:]))
+    x, s = x.to(cuda), s.to(cuda)
+    build.reset_launches()
+    got = trk.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert build.launches["rmsnorm"] == 1
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(ref.rmsnorm(x, s).cpu()), **_tol(name))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,d,causal,window,softcap",
+    [
+        (2, 512, 512, 32, 8, 64, True, None, None),
+        (2, 96, 160, 4, 1, 32, True, None, None),
+        (1, 300, 300, 8, 2, 64, True, 64, None),
+        (2, 64, 64, 2, 2, 32, False, None, 30.0),
+        (1, 200, 200, 4, 2, 128, True, 32, 50.0),
+    ],
+)
+def test_flash_kernel_matches_plain_on_card(cuda, name, b, sq, skv, hq, hkv, d, causal,
+                                            window, softcap):
+    _, t_in = _qkv(sq + d, b, sq, skv, hq, hkv, d, name)
+    q, k, v = _card(t_in, cuda)
+    build.reset_launches()
+    got = tfk.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention"] == 1
+    want = ref.mha_reference(q, k, v, causal=causal, window=window, logit_softcap=softcap)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), **_tol(name))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,d,lengths,window,softcap",
+    [
+        (8, 1024, 32, 8, 64, [513, 520, 527, 530, 535, 538, 540, 543], None, None),
+        (3, 200, 4, 4, 32, [1, 77, 200], None, None),
+        (4, 256, 8, 2, 64, [1, 100, 256, 31], 32, 30.0),
+        (2, 300, 32, 2, 128, [300, 5], 64, None),
+    ],
+)
+def test_decode_kernel_matches_plain_on_card(cuda, name, b, s, hq, hkv, d, lengths, window,
+                                             softcap):
+    _, t_in = _decode_inputs(s, b, s, hq, hkv, d, name, lengths=lengths)
+    q, kc, vc, lens = _card(t_in, cuda)
+    build.reset_launches()
+    got = tdk.decode_attention(q, kc, vc, lens, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert build.launches["decode_attention"] == 1
+    want = ref.decode_attention_reference(q, kc, vc, lens, window=window, softcap=softcap)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), **_tol(name))
