@@ -133,6 +133,80 @@ def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device milliseconds of one call of ``fn``: ``calls`` calls captured
+    in one CUDA graph, replayed ``replays`` times and timed by CUDA events,
+    so the host's work per call is out of the time (inputs L2-warm, as in
+    :func:`_cuda_ms`).  Capturing also proves the call capturable."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up on a side stream, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to return, with no
+    synchronise between calls (the enqueue cost; ``fn`` warmed up)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def _times(fn, iters: int, prefix: str = "") -> dict:
+    """Back-to-back ``ms`` (CUDA events), ``device_ms`` (CUDA graph) and
+    ``host_us`` of ``fn``, the keys prefixed with ``prefix``."""
+    return {f"{prefix}ms": _cuda_ms(fn, iters=iters), f"{prefix}device_ms": _graph_ms(fn),
+            f"{prefix}host_us": _host_us(fn)}
+
+
+def _ptxas_summary(log: str) -> list[str]:
+    """One line a kernel from nvcc's ``-Xptxas -v`` output: registers,
+    spill stores and loads, shared memory."""
+    import re
+
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            lines.append(f"{name}: {m.group(1)} registers, {spills}, static smem "
+                         f"{smem.group(1) if smem else 0} B")
+            name, spills = None, ""
+    return lines
+
+
 def _bound_ms(rows: int, nb: int) -> tuple[float, str]:
     """Least time for one stage: every candidate is one add and one compare
     on float32; each input read once, each output written once."""
@@ -183,19 +257,21 @@ def kernel_phase(dev, nb_main: int) -> dict:
             f"kernel != plain version for {label}",
         )
         err = _max_abs_err(out, want_out)
-        ms = _cuda_ms(lambda: fn(dp, f), iters=20)
+        t = _times(lambda: fn(dp, f), iters=20)
+        ms = t["ms"]
         plain_ms = _cuda_ms(lambda: plain(dp, f), iters=2, warmup=1)
         bound_ms, bound_by = _bound_ms(rows, nb)
         print(
             f"kernel {label}: rows={rows} nb={nb} bitwise out+arg ok, "
-            f"max_abs_err={err} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+            f"max_abs_err={err} ms={ms:.6f} device_ms={t['device_ms']:.6f} "
+            f"host_us={t['host_us']:.2f} plain_ms={plain_ms:.6f} "
             f"bound_ms={bound_ms:.6f} ({bound_by}, f32 {PEAK_F32_OPS:.3g} op/s) "
             f"roofline_share={bound_ms / ms:.4f} plain_over_kernel={plain_ms / ms:.1f} "
             f"library_ms=null (no single PyTorch call computes a (max,+) convolution)"
         )
         if rows == 1 and nb == nb_main:
             stats[fn.__name__] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": err, **t, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
     return stats
@@ -414,19 +490,21 @@ def stage_kernel_phase(dev) -> dict:
             f"stage kernel != plain version for {label} {dtype}",
         )
         err = _max_abs_err(out, want_out)
-        ms = _cuda_ms(lambda: mckp_dp.maxplus_stage_batched(dp, kb, vb), iters=50)
+        t = _times(lambda: mckp_dp.maxplus_stage_batched(dp, kb, vb), iters=50)
+        ms = t["ms"]
         plain_ms = _cuda_ms(lambda: ref.maxplus_stage_batched(dp, kb, vb), iters=5, warmup=1)
         bound_ms, bound_by = _stage_bound_ms(rows, nb, k, dp.element_size())
         print(
             f"stage kernel {label}: rows={rows} nb={nb} k={k} {dtype} bitwise "
-            f"out+arg ok, max_abs_err={err} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+            f"out+arg ok, max_abs_err={err} ms={ms:.6f} device_ms={t['device_ms']:.6f} "
+            f"host_us={t['host_us']:.2f} plain_ms={plain_ms:.6f} "
             f"bound_ms={bound_ms:.6f} ({bound_by}) roofline_share={bound_ms / ms:.4f} "
             f"plain_over_kernel={plain_ms / ms:.1f} library_ms=null (no PyTorch "
             f"call computes a sparse-option (max,+) stage)"
         )
         if i == 0:
             stats = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": err, **t, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
     return stats
@@ -607,9 +685,10 @@ def _bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
 def serving_kernel_phase(dev) -> dict:
     """Serving phase (a): the RMSNorm, flash attention and flash decode
     kernels against their plain versions on the card, in bf16 and float32,
-    at the serving path's shapes, a sliding-window shape, a softcap shape
-    and ragged decode lengths that include 1; each with its time, the plain
-    version's, its bound and one library call's as a yardstick.  Returns
+    at the serving path's shapes, a head dim of 128, a sliding-window shape,
+    a softcap shape and ragged decode lengths that include 1; each with its
+    back-to-back, device (CUDA graph) and host times, the plain version's
+    time, its bound and one library call's times as a yardstick.  Returns
     the bf16 stats at the path's shapes (prefill for RMSNorm)."""
     import numpy as np
     import torch
@@ -629,18 +708,33 @@ def serving_kernel_phase(dev) -> dict:
     b, p, s_max = SERVE_BATCH, SERVE_PROMPT, SERVE_S_MAX
     stats = {}
 
-    def report(kind, label, dtype, ok, err, tol, ms, plain_ms, lib_ms, lib_err, bound):
-        bound_ms, bound_by = bound
+    def report(kind, label, dtype, ok, err, tol, kern, plain, iters, lib, lib_err, ops,
+               nbytes, peak_ops, rate):
+        """Time kern, plain and lib, print one kernel line, return its stats.
+        ``rate`` names the achieved rate printed: "tflops" or "gbs"."""
         check(ok, f"{kind} kernel != plain version for {label} {dtype} (max_abs_err={err})")
-        lib = (f"library_ms={lib_ms:.6f} library_max_abs_err={lib_err}" if lib_ms is not None
-               else "library_ms=null (no library call takes this window or softcap)")
+        t = _times(kern, iters)
+        plain_ms = _cuda_ms(plain, iters=5)
+        bound_ms, bound_by = _bound(ops, nbytes, peak_ops)
+        lt = _times(lib, iters, "library_") if lib is not None else {"library_ms": None}
+        achieved = (f"achieved_tflops={ops / t['device_ms'] / 1e9:.1f}" if rate == "tflops"
+                    else f"achieved_gbs={nbytes / t['device_ms'] / 1e6:.1f}")
+        lib_txt = (
+            f"library_ms={lt['library_ms']:.6f} library_device_ms="
+            f"{lt['library_device_ms']:.6f} library_host_us={lt['library_host_us']:.2f} "
+            f"library_max_abs_err={lib_err} device_over_library="
+            f"{t['device_ms'] / lt['library_device_ms']:.2f}"
+            if lib is not None else
+            "library_ms=null (no library call takes this window or softcap)")
         print(
             f"{kind} kernel {label} {dtype}: max_abs_err={err} (tol rtol=atol={tol}) "
-            f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
-            f"roofline_share={bound_ms / ms:.4f} plain_over_kernel={plain_ms / ms:.2f} {lib}"
+            f"ms={t['ms']:.6f} device_ms={t['device_ms']:.6f} host_us={t['host_us']:.2f} "
+            f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
+            f"roofline_share={bound_ms / t['device_ms']:.4f} {achieved} "
+            f"plain_over_kernel={plain_ms / t['ms']:.2f} {lib_txt}"
         )
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+        return {"max_abs_err": err, **t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, **lt}
 
     for dtype in (torch.bfloat16, torch.float32):
         tol = KERNEL_TOL[str(dtype).split(".")[-1]]
@@ -658,22 +752,22 @@ def serving_kernel_phase(dev) -> dict:
             n = x.numel()
             st = report(
                 "rmsnorm", label, dtype, ok, err, tol,
-                _cuda_ms(lambda: rmsnorm(x, scale), iters=50),
-                _cuda_ms(lambda: ref.rmsnorm(x, scale), iters=20),
-                _cuda_ms(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6), iters=50), lib_err,
-                _bound(4.0 * n, 2.0 * isz * n + 4.0 * shape[-1], PEAK_F32_OPS),
+                lambda: rmsnorm(x, scale), lambda: ref.rmsnorm(x, scale), 50,
+                lambda: F.rms_norm(x, (shape[-1],), w, 1e-6), lib_err,
+                4.0 * n, 2.0 * isz * n + 4.0 * shape[-1], PEAK_F32_OPS, "gbs",
             )
             if dtype == torch.bfloat16 and label.startswith("prefill"):
                 stats["rmsnorm"] = st
-        # flash attention: the prefill shape, a window, a softcap
-        for label, bb, causal, window, cap in (
-            ("prefill q [8, 512, 32, 64]", b, True, None, None),
-            ("window 128, q [2, 512, 32, 64]", 2, True, 128, None),
-            ("softcap 30, q [2, 512, 32, 64]", 2, True, None, 30.0),
+        # flash attention: the prefill shape, head dim 128, a window, a softcap
+        for label, bb, dh, causal, window, cap in (
+            ("prefill q [8, 512, 32, 64]", b, hd, True, None, None),
+            ("head dim 128, q [2, 512, 32, 128]", 2, 128, True, None, None),
+            ("window 128, q [2, 512, 32, 64]", 2, hd, True, 128, None),
+            ("softcap 30, q [2, 512, 32, 64]", 2, hd, True, None, 30.0),
         ):
-            q = randn(bb, p, hq, hd, dtype=dtype)
-            k = randn(bb, p, hkv, hd, dtype=dtype)
-            v = randn(bb, p, hkv, hd, dtype=dtype)
+            q = randn(bb, p, hq, dh, dtype=dtype)
+            k = randn(bb, p, hkv, dh, dtype=dtype)
+            v = randn(bb, p, hkv, dh, dtype=dtype)
 
             def kern():
                 return flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
@@ -684,7 +778,7 @@ def serving_kernel_phase(dev) -> dict:
 
             want = plain()
             ok, err = _tol_ok(kern(), want, tol)
-            lib_ms = lib_err = None
+            lib = lib_err = None
             if window is None and cap is None:
                 qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
@@ -693,14 +787,11 @@ def serving_kernel_phase(dev) -> dict:
                                                           enable_gqa=True)
 
                 lib_err = _max_abs_err(lib().transpose(1, 2).float(), want.float())
-                lib_ms = _cuda_ms(lib, iters=50)
             pairs = _attn_pairs(p, p, causal, window)
             st = report(
-                "flash_attention", label, dtype, ok, err, tol,
-                _cuda_ms(kern, iters=20), _cuda_ms(plain, iters=5),
-                lib_ms, lib_err,
-                _bound(4.0 * bb * hq * hd * pairs,
-                       isz * (2 * q.numel() + k.numel() + v.numel()), _peak_ops(dtype)),
+                "flash_attention", label, dtype, ok, err, tol, kern, plain, 20, lib, lib_err,
+                4.0 * bb * hq * dh * pairs, isz * (2 * q.numel() + k.numel() + v.numel()),
+                _peak_ops(dtype), "tflops",
             )
             if dtype == torch.bfloat16 and label.startswith("prefill"):
                 stats["flash_attention"] = st
@@ -728,7 +819,7 @@ def serving_kernel_phase(dev) -> dict:
 
             want = plain()
             ok, err = _tol_ok(kern(), want, tol)
-            lib_ms = lib_err = None
+            lib = lib_err = None
             if window is None and cap is None:
                 qt = q[:, :, None, :].contiguous()
                 kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
@@ -739,15 +830,12 @@ def serving_kernel_phase(dev) -> dict:
                                                           enable_gqa=True)
 
                 lib_err = _max_abs_err(lib()[:, :, 0].float(), want.float())
-                lib_ms = _cuda_ms(lib, iters=50)
             valid = sum(min(int(n), s_max) - (max(0, int(n) - window) if window else 0)
                         for n in lens)
             st = report(
-                "decode_attention", label, dtype, ok, err, tol,
-                _cuda_ms(kern, iters=50), _cuda_ms(plain, iters=20),
-                lib_ms, lib_err,
-                _bound(4.0 * hq * hd * valid,
-                       isz * (2 * q.numel() + 2 * hkv * hd * valid) + 4 * b, _peak_ops(dtype)),
+                "decode_attention", label, dtype, ok, err, tol, kern, plain, 50, lib, lib_err,
+                4.0 * hq * hd * valid, isz * (2 * q.numel() + 2 * hkv * hd * valid) + 4 * b,
+                _peak_ops(dtype), "gbs",
             )
             if dtype == torch.bfloat16 and label.startswith("decode"):
                 stats["decode_attention"] = st
@@ -897,7 +985,7 @@ def serving_profile(dev, model, tokens, s_max: int) -> None:
 
     batch, prompt = tokens.shape
 
-    def show(label, prof, wall):
+    def show(label, prof, wall, want=None):
         by_kernel: dict[str, float] = {}
         n_device = 0
         for e in prof.events():
@@ -909,6 +997,8 @@ def serving_profile(dev, model, tokens, s_max: int) -> None:
             print(f"profiled {label}: wall_s={wall:.5f} busy_share=not measured "
                   "(the profiler recorded no device time)")
             return
+        if want is not None:
+            check(any(want in name for name in by_kernel), f"{label} did not run {want}")
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
         print(
             f"profiled {label}: wall_s={wall:.5f} device_busy_s={busy:.5f} "
@@ -922,7 +1012,7 @@ def serving_profile(dev, model, tokens, s_max: int) -> None:
         lg, cache = model.prefill({"tokens": tokens})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    show(f"prefill ({batch} x {prompt})", prof, wall)
+    show(f"prefill ({batch} x {prompt})", prof, wall, want="flash_attention_wgmma_kernel")
     cache = pad_cache_to(cache, model.cache_shapes(batch, s_max))
     lengths = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
     nxt = lg.argmax(-1)[:, None]
@@ -999,6 +1089,9 @@ def main() -> int:
     print(f"build {len(logs)} sources in parallel: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         print(f"{mckp_dp.SOURCES[name].relative_to(ROOT)}:\n{log.strip()}")
+    for name, log in logs.items():
+        for line in _ptxas_summary(log):
+            print(f"ptxas {name}: {line}")
 
     apps, surfs = surfaces.build_paper_suite(types.SYSTEM_2)
 

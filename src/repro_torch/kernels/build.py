@@ -176,8 +176,22 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
+def call(index: int, fn, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of CUDA device ``index``
+    (the raw stream handle, read without building a ``torch.cuda.Stream``).
+    The device is made current around the call only when it is not
+    already (the kernels launch on the current device)."""
+    c = torch._C
+    if index == c._cuda_getDevice():
+        return fn(*args, c._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, c._cuda_getCurrentRawStream(index))
+
+
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned, as the serving kernels' vector
-    loads need (a copy only where it is not)."""
+    loads and TMA need: ``t`` itself when it already is, else a copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()

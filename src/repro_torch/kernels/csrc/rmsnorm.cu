@@ -16,13 +16,20 @@
 // 3.35 TB/s.  The decode call (8 rows) moves 66 KB and is bound by launch
 // latency, not by the card.
 //
-// Design: one block per row, ceil(d / 8) threads rounded up to whole warps
-// (at most 256), so at d = 2048 each thread holds exactly one 16-byte
-// vector of eight bf16.  Sum of squares per thread, warp-shuffle sum, then
-// the warps' partials through shared memory.  The second pass re-reads the
-// row from L1 (4 KB at d = 2048) and reads each scale element once per
-// block.  Rows that are not 16-byte aligned or whose width is not a
-// multiple of 8 take a scalar loop with the same arithmetic.
+// Design: one block of up to 256 threads walks rows blockIdx.x,
+// blockIdx.x + gridDim.x, ... (a grid of at most 8 blocks an SM).  On the
+// vector path each thread owns VPT (1 to 4) 16-byte vectors of eight
+// elements of a row and of scale: it loads its x vectors once into
+// registers, sums their squares, and writes the normalised vectors from
+// the same registers, so x is read from device memory once; its scale
+// vectors stay in registers across the block's rows.  Warp-shuffle sums,
+// then the warps' partials through shared memory, double-buffered by row
+// parity so one __syncthreads a row suffices.  VPT is the smallest of 1-4
+// that covers the row at 256 threads: 2048 (granite-3-2b) takes 1, 4096
+// (chatglm3-6b) 2, 5120 (mistral-nemo-12b) and 5376 (gemma3-27b) 3; up to
+// 8192 elements stay in registers.  Rows that are not 16-byte aligned,
+// widths that are not a multiple of 8 or wider than 8192 take a scalar
+// loop with the same arithmetic that reads the row twice.
 
 #include "common.cuh"
 
@@ -34,74 +41,137 @@ using serving::store8;
 using serving::to_f;
 
 constexpr int MAX_THREADS = 256;
+constexpr int MAX_VPT = 4;
+constexpr int WARPS = MAX_THREADS / 32;
+
+// Sum of `ss` over the block; partial[2][WARPS] is indexed by row parity,
+// so a row's partials are never overwritten while another thread still
+// reads them.
+__device__ __forceinline__ float block_sum(float ss, float (*partial)[WARPS], int parity) {
+  ss = serving::warp_sum(ss);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) partial[parity][warp] = ss;
+  __syncthreads();
+  float total = 0.0f;
+  for (int w = 0; w < blockDim.x / 32; ++w) total += partial[parity][w];
+  return total;
+}
+
+template <typename T, int VPT>
+__global__ void __launch_bounds__(MAX_THREADS)
+    rmsnorm_vec_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                       T* __restrict__ out, int rows, int d, float eps) {
+  __shared__ float partial[2][WARPS];
+  float s1[VPT][8];  // 1 + scale of this thread's vectors
+  bool own[VPT];
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    const int c = (threadIdx.x + v * blockDim.x) * 8;
+    own[v] = c < d;
+    if (own[v]) {
+      const float4 a = reinterpret_cast<const float4*>(scale + c)[0];
+      const float4 b = reinterpret_cast<const float4*>(scale + c)[1];
+      const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s1[v][i] = 1.0f + f[i];
+    }
+  }
+  int parity = 0;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x, parity ^= 1) {
+    const T* xr = x + static_cast<size_t>(r) * d;
+    T* orow = out + static_cast<size_t>(r) * d;
+    float f[VPT][8];
+    float ss = 0.0f;
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      if (own[v]) {
+        load8(xr + (threadIdx.x + v * blockDim.x) * 8, f[v]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ss += f[v][i] * f[v][i];
+      }
+    }
+    const float inv =
+        1.0f / sqrtf(block_sum(ss, partial, parity) / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      if (own[v]) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[v][i] = (f[v][i] * inv) * s1[v][i];
+        store8(orow + (threadIdx.x + v * blockDim.x) * 8, f[v]);
+      }
+    }
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS)
-    rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   T* __restrict__ out, int d, float eps, int vec) {
-  __shared__ float partial[MAX_THREADS / 32];
-  __shared__ float inv_shared;
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * d;
-  T* orow = out + static_cast<size_t>(blockIdx.x) * d;
-
-  float ss = 0.0f;
-  if (vec) {
-    for (int c = threadIdx.x * 8; c < d; c += blockDim.x * 8) {
-      float f[8];
-      load8(xr + c, f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ss += f[i] * f[i];
-    }
-  } else {
+    rmsnorm_scalar_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                          T* __restrict__ out, int rows, int d, float eps) {
+  __shared__ float partial[2][WARPS];
+  int parity = 0;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x, parity ^= 1) {
+    const T* xr = x + static_cast<size_t>(r) * d;
+    T* orow = out + static_cast<size_t>(r) * d;
+    float ss = 0.0f;
     for (int c = threadIdx.x; c < d; c += blockDim.x) {
       const float f = to_f(xr[c]);
       ss += f * f;
     }
-  }
-  ss = serving::warp_sum(ss);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < blockDim.x / 32; ++w) total += partial[w];
-    inv_shared = 1.0f / sqrtf(total / static_cast<float>(d) + eps);
-  }
-  __syncthreads();
-  const float inv = inv_shared;
-
-  if (vec) {
-    for (int c = threadIdx.x * 8; c < d; c += blockDim.x * 8) {
-      float f[8];
-      load8(xr + c, f);
-      const float4 s0 = reinterpret_cast<const float4*>(scale + c)[0];
-      const float4 s1 = reinterpret_cast<const float4*>(scale + c)[1];
-      const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = (f[i] * inv) * (1.0f + s[i]);
-      store8(orow + c, f);
-    }
-  } else {
+    const float inv =
+        1.0f / sqrtf(block_sum(ss, partial, parity) / static_cast<float>(d) + eps);
     for (int c = threadIdx.x; c < d; c += blockDim.x) {
       orow[c] = from_f<T>((to_f(xr[c]) * inv) * (1.0f + scale[c]));
     }
   }
 }
 
+int max_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    blocks = 8 * sms;
+  }
+  return blocks;
+}
+
 template <typename T>
 int launch(const void* x, const void* scale, void* out, int rows, int d,
            float eps, void* stream) {
   if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int cap = max_blocks();
+  if (cap == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int grid = rows < cap ? rows : cap;
   const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(scale) % 16 == 0);
-  const int vec = (aligned && d % 8 == 0) ? 1 : 0;
-  const int work = vec ? (d + 7) / 8 : d;
-  int threads = ((work + 31) / 32) * 32;
-  if (threads > MAX_THREADS) threads = MAX_THREADS;
-  rmsnorm_kernel<T><<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<T*>(out), d, eps, vec);
+  const int nvec = d / 8;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const float* sc = static_cast<const float*>(scale);
+  T* ot = static_cast<T*>(out);
+  if (aligned && d % 8 == 0 && nvec <= MAX_VPT * MAX_THREADS) {
+    const int threads = nvec < MAX_THREADS ? ((nvec + 31) / 32) * 32 : MAX_THREADS;
+    switch ((nvec + threads - 1) / threads) {
+      case 1:
+        rmsnorm_vec_kernel<T, 1><<<grid, threads, 0, s>>>(xt, sc, ot, rows, d, eps);
+        break;
+      case 2:
+        rmsnorm_vec_kernel<T, 2><<<grid, threads, 0, s>>>(xt, sc, ot, rows, d, eps);
+        break;
+      case 3:
+        rmsnorm_vec_kernel<T, 3><<<grid, threads, 0, s>>>(xt, sc, ot, rows, d, eps);
+        break;
+      default:
+        rmsnorm_vec_kernel<T, 4><<<grid, threads, 0, s>>>(xt, sc, ot, rows, d, eps);
+        break;
+    }
+  } else {
+    const int threads = d < MAX_THREADS ? ((d + 31) / 32) * 32 : MAX_THREADS;
+    rmsnorm_scalar_kernel<T><<<grid, threads, 0, s>>>(xt, sc, ot, rows, d, eps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import aligned, check, launches, library
+from repro_torch.kernels.build import aligned, call, check, launches, library
 
 _ENTRY = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
 MAX_GROUP = 16  # query heads per KV head
@@ -39,11 +39,11 @@ def decode_attention(
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k_cache.shape)}")
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
-    dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (k_cache, v_cache, lengths)):
-        raise ValueError(f"q/cache/lengths must lie on one CUDA device, got {dev}")
-    entry = _ENTRY.get(q.dtype)
-    if entry is None or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    index = q.get_device()
+    if index < 0 or any(t.get_device() != index for t in (k_cache, v_cache, lengths)):
+        raise ValueError(f"q/cache/lengths must lie on one CUDA device, got {q.device}")
+    name = _ENTRY.get(q.dtype)
+    if name is None or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(
             f"q/cache must share bfloat16 or float32, got {q.dtype} {k_cache.dtype}"
         )
@@ -58,15 +58,15 @@ def decode_attention(
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     q, k_cache, v_cache = aligned(q), aligned(k_cache), aligned(v_cache)
-    lengths = lengths.to(torch.int32).contiguous()
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = library("decode_attention")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, s, hq, hkv, d, window or 0, softcap or 0.0, stream,
-        )
+    err = call(
+        index, getattr(lib, name), q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, s, hq, hkv, d, window or 0,
+        softcap or 0.0,
+    )
     check(lib, "decode_attention", err)
     launches["decode_attention"] += 1
     return out

@@ -3,16 +3,19 @@
 
 Replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention``; its plain version is
-:func:`repro_torch.kernels.ref.mha_reference`.  The wrapper checks device,
-type and shape, raises on what the kernel does not take, and adds one to
-``launches["flash_attention"]`` per launch.
+:func:`repro_torch.kernels.ref.mha_reference`.  bfloat16 runs
+``flash_attention_wgmma_kernel`` (tensor cores: wgmma, with K/V fed by
+TMA), float32 runs ``flash_attention_simt_kernel`` (CUDA cores, full
+float32).  The wrapper checks device, type and shape, raises on what the
+kernel does not take, and adds one to ``launches["flash_attention"]`` per
+launch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import aligned, check, launches, library
+from repro_torch.kernels.build import aligned, call, check, launches, library
 
 _ENTRY = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
 #: head dims the kernel is instantiated for
@@ -36,10 +39,11 @@ def flash_attention(
     _, skv, hkv, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    index = q.get_device()
+    if index < 0 or k.get_device() != index or v.get_device() != index:
         raise ValueError(f"q/k/v must lie on one CUDA device, got {q.device} {k.device}")
-    entry = _ENTRY.get(q.dtype)
-    if entry is None or k.dtype != q.dtype or v.dtype != q.dtype:
+    name = _ENTRY.get(q.dtype)
+    if name is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share bfloat16 or float32, got {q.dtype} {k.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
@@ -50,12 +54,10 @@ def flash_attention(
     q, k, v = aligned(q), aligned(k), aligned(v)
     out = torch.empty_like(q)
     lib = library("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, skv, hq, hkv, d, int(causal), window or 0, softcap or 0.0, stream,
-        )
+    err = call(
+        index, getattr(lib, name), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), window or 0, softcap or 0.0,
+    )
     check(lib, "flash_attention", err)
     launches["flash_attention"] += 1
     return out

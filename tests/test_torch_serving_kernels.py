@@ -136,6 +136,71 @@ def test_flash_plain_matches_blocked_model_path():
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
 
 
+def _wgmma_order_attention(q, k, v, *, causal=True, window=None, softcap=None, bq=128, bk=64):
+    """Test-only rehearsal of the bf16 CUDA kernel's arithmetic order
+    (``flash_attention_wgmma_kernel``) in torch on the CPU: q-tiles of
+    ``bq`` rows, key tiles of ``bk`` from the window's first tile (rounded
+    down to ``bk``) to the causal bound; S = Q K^T as bf16 products summed
+    in float32, the scale applied to S, the softcap, masked logits at
+    -1e30 with zero probability, online softmax with float32 m and l, P
+    rounded to bf16 before P V, O in float32, out = O / max(l, 1e-30)
+    rounded to q's type.  Not a plain version: nothing on the main path
+    calls it."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)  # [b, hkv, g, sq, d]
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]  # [b, hkv, 1, skv, d]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    out = torch.empty(b, hkv, g, sq, d)
+    for q0 in range(0, sq, bq):
+        rows = torch.arange(q0, min(q0 + bq, sq))
+        kv_end = min(skv, q0 + bq) if causal else skv
+        kv_begin = (max(0, q0 - window + 1) // bk) * bk if window else 0
+        m = torch.full((b, hkv, g, len(rows), 1), -1e30)
+        l = torch.zeros(b, hkv, g, len(rows), 1)
+        o = torch.zeros(b, hkv, g, len(rows), d)
+        for t0 in range(kv_begin, kv_end, bk):
+            cols = torch.arange(t0, min(t0 + bk, skv))
+            s = (qf[:, :, :, rows] @ kf[:, :, :, cols].transpose(-1, -2)) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            ok = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                ok &= rows[:, None] >= cols[None, :]
+            if window is not None:
+                ok &= rows[:, None] - cols[None, :] < window
+            s = torch.where(ok, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(s - m_new), torch.tensor(0.0))
+            l = corr * l + p.sum(-1, keepdim=True)
+            o = corr * o + p.to(torch.bfloat16).float() @ vf[:, :, :, cols]
+            m = m_new
+        out[:, :, :, rows] = o / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,d,window,softcap",
+    [
+        (1, 512, 32, 8, 64, None, None),  # granite-3-2b's heads
+        (1, 512, 8, 2, 128, None, None),  # mistral-nemo / gemma3 head dim
+        (1, 512, 32, 8, 64, 128, None),
+        (1, 512, 32, 8, 64, None, 30.0),
+    ],
+)
+def test_bf16_probabilities_stay_within_kernel_tolerance(b, s, hq, hkv, d, window, softcap):
+    """Rounding P to bf16 before P V (the bf16 kernel's one departure from
+    the TPU kernel's float32 P) keeps the output within the bf16 tolerance
+    of the float32-softmax oracle, on the same bf16 inputs."""
+    _, (q, k, v) = _qkv(d + (window or 0), b, s, s, hq, hkv, d, "bfloat16")
+    got = _wgmma_order_attention(q, k, v, causal=True, window=window, softcap=softcap)
+    want = ref.mha_reference(q, k, v, causal=True, window=window, logit_softcap=softcap)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("bfloat16"))
+
+
 # ---------------------------------------------------------------------------
 # Decode attention
 # ---------------------------------------------------------------------------
@@ -242,6 +307,28 @@ def test_kernel_sources_name_the_replaced_tpu_kernels():
     }
 
 
+def test_flash_source_names_one_kernel_per_type():
+    src = build.SOURCES["flash_attention"].read_text()
+    for needle in (
+        "flash_attention_wgmma_kernel", "flash_attention_simt_kernel", "wgmma.mma_async",
+        "cp.async.bulk.tensor.4d", "__grid_constant__", "cudaGetDriverEntryPoint",
+        "cudaFuncAttributeMaxDynamicSharedMemorySize",
+    ):
+        assert needle in src, needle
+    assert "-lcuda" not in " ".join(build.NVCC_FLAGS)
+
+
+def test_aligned_copies_only_what_the_kernels_cannot_take():
+    t = torch.zeros(4, 64)
+    assert build.aligned(t) is t
+    sl = torch.zeros(4, 128)[:, :64]  # not contiguous
+    got = build.aligned(sl)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0 and torch.equal(got, sl)
+    off = torch.zeros(65)[1:]  # contiguous, 4 bytes past an aligned base
+    got = build.aligned(off)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -318,3 +405,83 @@ def test_decode_kernel_matches_plain_on_card(cuda, name, b, s, hq, hkv, d, lengt
     assert build.launches["decode_attention"] == 1
     want = ref.decode_attention_reference(q, kc, vc, lens, window=window, softcap=softcap)
     np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), **_tol(name))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,sq,hq,hkv,d,causal,window,softcap",
+    [
+        (2, 512, 32, 8, 128, True, None, None),  # head dim 128
+        (1, 256, 32, 2, 64, True, None, None),  # group 16 (chatglm3-6b)
+        (2, 200, 8, 2, 64, True, None, None),  # ragged ends: TMA zero fill per sequence
+        (3, 300, 4, 1, 128, True, None, None),
+        (2, 77, 4, 4, 32, False, None, None),
+        (2, 300, 8, 2, 64, True, 100, 30.0),  # window and softcap together
+    ],
+)
+def test_flash_bf16_wgmma_kernel_on_card(cuda, b, sq, hq, hkv, d, causal, window, softcap):
+    _, t_in = _qkv(sq * d + hq, b, sq, sq, hq, hkv, d, "bfloat16")
+    q, k, v = _card(t_in, cuda)
+    build.reset_launches()
+    got = tfk.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention"] == 1
+    want = ref.mha_reference(q, k, v, causal=causal, window=window, logit_softcap=softcap)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), **_tol("bfloat16"))
+
+
+def _replayed(fn):
+    """fn() captured in a CUDA graph and replayed once: its output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+def test_flash_bf16_graph_replay_matches_eager(cuda):
+    _, t_in = _qkv(5, 2, 300, 300, 8, 2, 64, "bfloat16")
+    q, k, v = _card(t_in, cuda)
+    eager = tfk.flash_attention(q, k, v, window=128)
+    assert torch.equal(_replayed(lambda: tfk.flash_attention(q, k, v, window=128)), eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("d", [4096, 5120, 5376])
+def test_rmsnorm_kernel_ported_widths_on_card(cuda, name, d):
+    rng = np.random.default_rng(d)
+    _, x = _pair(_normal(rng, (64, d)), name)
+    s = torch.from_numpy(0.1 * _normal(rng, (d,)))
+    x, s = x.to(cuda), s.to(cuda)
+    got = trk.rmsnorm(x, s)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(ref.rmsnorm(x, s).cpu()), **_tol(name))
+
+
+@pytest.mark.gpu
+def test_rmsnorm_graph_replay_matches_eager(cuda):
+    rng = np.random.default_rng(11)
+    _, x = _pair(_normal(rng, (512, 2048)), "bfloat16")
+    x, s = x.to(cuda), torch.from_numpy(0.1 * _normal(rng, (2048,))).to(cuda)
+    assert torch.equal(_replayed(lambda: trk.rmsnorm(x, s)), trk.rmsnorm(x, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rmsnorm_non_contiguous_input_on_card(cuda, name):
+    rng = np.random.default_rng(12)
+    _, x = _pair(_normal(rng, (16, 3, 2048)), name)
+    x = x.to(cuda)[:, 1]  # every third row: not contiguous
+    s = torch.from_numpy(0.1 * _normal(rng, (2048,))).to(cuda)
+    assert not x.is_contiguous()
+    got = trk.rmsnorm(x, s)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(ref.rmsnorm(x, s).cpu()), **_tol(name))
