@@ -11,14 +11,15 @@ Phases, each of which exits non-zero on failure before the last line:
  2. build of the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
     ``nvcc`` per source started together (the ``-Xptxas -v`` summaries);
  3. the dense (max,+) convolution kernel against its plain PyTorch version
-    on the card, bitwise, at the dense main path's shapes, with times and
-    bounds;
+    on the card, bitwise, at the dense main path's shapes, with times,
+    bounds, the kernel's work items and its launches a call;
  4. the dense main path: a 256-node SYSTEM_2 cluster for 4 rounds (pool
     budget, one failure, one straggler) through ``ClusterSim.run`` under
     ``solver="pallas"`` (the kernel) and ``solver="jax"`` (the plain
     version), bitwise equal round by round, with the kernel's launch count
     equal to the DP stages run, and round 0 held against the float64 numpy
-    DP; then the device busy share of one round from ``torch.profiler``;
+    DP; then the device busy share of one round from ``torch.profiler``
+    and the dense kernel's share of it;
  5. one ungrouped round and one ``allocate_batch`` budget sweep, each held
     against its plain-version run;
  6. the sparse-option (max,+) stage kernel against its plain version on
@@ -32,9 +33,12 @@ Phases, each of which exits non-zero on failure before the last line:
     then the device busy share of one fused round;
  8. the serving kernels (RMSNorm, flash attention, flash decode) against
     their plain PyTorch versions on the card, in bf16 and float32, at the
-    serving path's shapes, a sliding-window and a softcap shape and ragged
-    decode lengths that include 1, each with its time, the plain version's,
-    its bound and one library call's (``torch.nn.functional.rms_norm``,
+    serving path's shapes, a sliding-window and a softcap shape, ragged
+    decode lengths that include 1, a long decode cache (8192 slots) and
+    prefill attention at head dim 80 (zamba2-2.7b's and hubert-xlarge's
+    heads, zero-padded to the D = 128 kernel, with the padding copy's
+    time), each with its time, the plain version's, its bound and one
+    library call's (``torch.nn.functional.rms_norm``,
     ``scaled_dot_product_attention``; the port never calls them);
  9. the serving path: granite-3-2b at its full config (40 layers, bf16
     compute, float32 weights drawn from a seed) through
@@ -44,7 +48,8 @@ Phases, each of which exits non-zero on failure before the last line:
     the path implies; then the same prompts on the plain route on the card,
     teacher-forced with the kernel route's tokens, logits held within
     LOGIT_REL_TOL, and the share of greedy tokens the two routes agree on;
-    then the device busy share of one prefill and one decode step;
+    then the device busy share of one prefill and one decode step, with
+    the attention kernels' shares;
 10. one JSON line listing each ported kernel, then the result line.
 
 It exits 2 without printing a result when no CUDA card is present or when
@@ -241,6 +246,9 @@ def kernel_phase(dev, nb_main: int) -> dict:
         ("batched R=8 (budget sweep stage)", mckp_dp.maxplus_conv_batched, N_BUDGETS, nb_main),
         ("batched R=3, NB not a multiple of 128", mckp_dp.maxplus_conv_batched, 3, 1000 + 37),
         ("single row (ungrouped stage)", mckp_dp.maxplus_conv, 1, nb_main),
+        ("batched R=1, NB past the main path", mckp_dp.maxplus_conv_batched, 1, 16384),
+        ("batched R=8, NB past the main path", mckp_dp.maxplus_conv_batched, N_BUDGETS, 16384),
+        ("batched R=1, NB = 65536", mckp_dp.maxplus_conv_batched, 1, 65536),
     ]
     stats = {}
     for i, (label, fn, rows, nb) in enumerate(cases):
@@ -250,12 +258,16 @@ def kernel_phase(dev, nb_main: int) -> dict:
             plain = ref.maxplus_conv
         else:
             plain = ref.maxplus_conv_batched
+        counter = fn.__name__
+        before = mckp_dp.launches[counter]
         out, arg = fn(dp, f)
+        per_call = mckp_dp.launches[counter] - before
         want_out, want_arg = plain(dp, f)
         check(
             _bits_equal(out, want_out) and _bits_equal(arg, want_arg),
             f"kernel != plain version for {label}",
         )
+        check(per_call == 1, f"{label}: {per_call} launches a call")
         err = _max_abs_err(out, want_out)
         t = _times(lambda: fn(dp, f), iters=20)
         ms = t["ms"]
@@ -263,6 +275,7 @@ def kernel_phase(dev, nb_main: int) -> dict:
         bound_ms, bound_by = _bound_ms(rows, nb)
         print(
             f"kernel {label}: rows={rows} nb={nb} bitwise out+arg ok, "
+            f"work_items={mckp_dp.work_items(rows, nb)} launches_per_call={per_call} "
             f"max_abs_err={err} ms={ms:.6f} device_ms={t['device_ms']:.6f} "
             f"host_us={t['host_us']:.2f} plain_ms={plain_ms:.6f} "
             f"bound_ms={bound_ms:.6f} ({bound_by}, f32 {PEAK_F32_OPS:.3g} op/s) "
@@ -351,6 +364,13 @@ def main_path_phase(dev, fresh_sim, scen) -> int:
     return launches["maxplus_conv_batched"]
 
 
+def _kernel_share(by_kernel: dict, kernel: str, wall: float) -> str:
+    """``kernel``'s summed device time (µs) and its share of ``wall`` (s),
+    over every profiled name that holds it."""
+    us = sum(v for k, v in by_kernel.items() if kernel in k)
+    return f"{kernel}_us={us:.1f} {kernel}_share={us / 1e6 / wall:.4f}"
+
+
 def busy_share_phase(dev, fresh_sim) -> None:
     """Device busy share of one kernel-path round, from torch.profiler:
     the summed durations of the device-side events (kernels and copies on
@@ -374,7 +394,8 @@ def busy_share_phase(dev, fresh_sim) -> None:
     if device_s:
         print(
             f"profiled round: wall_s={wall:.4f} device_busy_s={device_s:.4f} "
-            f"busy_share={device_s / wall:.4f} top_device_us_and_share="
+            f"busy_share={device_s / wall:.4f} "
+            f"{_kernel_share(by_kernel, 'maxplus_conv_kernel', wall)} top_device_us_and_share="
             + json.dumps(
                 {k[:60]: [round(v, 1), round(v / 1e6 / wall, 4)] for k, v in top}
             )
@@ -696,7 +717,11 @@ def serving_kernel_phase(dev) -> dict:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        kernel_head_dim,
+        pad_head_dim,
+    )
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
@@ -709,9 +734,10 @@ def serving_kernel_phase(dev) -> dict:
     stats = {}
 
     def report(kind, label, dtype, ok, err, tol, kern, plain, iters, lib, lib_err, ops,
-               nbytes, peak_ops, rate):
-        """Time kern, plain and lib, print one kernel line, return its stats.
-        ``rate`` names the achieved rate printed: "tflops" or "gbs"."""
+               nbytes, peak_ops, rate, extra=""):
+        """Time kern, plain and lib, print one kernel line (ending in
+        ``extra``), return its stats.  ``rate`` names the achieved rate
+        printed: "tflops" or "gbs"."""
         check(ok, f"{kind} kernel != plain version for {label} {dtype} (max_abs_err={err})")
         t = _times(kern, iters)
         plain_ms = _cuda_ms(plain, iters=5)
@@ -731,7 +757,7 @@ def serving_kernel_phase(dev) -> dict:
             f"ms={t['ms']:.6f} device_ms={t['device_ms']:.6f} host_us={t['host_us']:.2f} "
             f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
             f"roofline_share={bound_ms / t['device_ms']:.4f} {achieved} "
-            f"plain_over_kernel={plain_ms / t['ms']:.2f} {lib_txt}"
+            f"plain_over_kernel={plain_ms / t['ms']:.2f} {lib_txt}{extra}"
         )
         return {"max_abs_err": err, **t, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, **lt}
@@ -758,16 +784,21 @@ def serving_kernel_phase(dev) -> dict:
             )
             if dtype == torch.bfloat16 and label.startswith("prefill"):
                 stats["rmsnorm"] = st
-        # flash attention: the prefill shape, head dim 128, a window, a softcap
-        for label, bb, dh, causal, window, cap in (
-            ("prefill q [8, 512, 32, 64]", b, hd, True, None, None),
-            ("head dim 128, q [2, 512, 32, 128]", 2, 128, True, None, None),
-            ("window 128, q [2, 512, 32, 64]", 2, hd, True, 128, None),
-            ("softcap 30, q [2, 512, 32, 64]", 2, hd, True, None, 30.0),
+        # flash attention: the prefill shape, head dim 128, a window, a
+        # softcap, and head dim 80 (zero-padded to the D = 128 kernel)
+        for label, bb, nq, nkv, dh, causal, window, cap in (
+            ("prefill q [8, 512, 32, 64]", b, hq, hkv, hd, True, None, None),
+            ("head dim 128, q [2, 512, 32, 128]", 2, hq, hkv, 128, True, None, None),
+            ("window 128, q [2, 512, 32, 64]", 2, hq, hkv, hd, True, 128, None),
+            ("softcap 30, q [2, 512, 32, 64]", 2, hq, hkv, hd, True, None, 30.0),
+            ("zamba2-2.7b head dim 80, q [2, 512, 32, 80] causal", 2, 32, 32, 80, True, None,
+             None),
+            ("hubert-xlarge head dim 80, q [2, 512, 16, 80] bidirectional", 2, 16, 16, 80, False,
+             None, None),
         ):
-            q = randn(bb, p, hq, dh, dtype=dtype)
-            k = randn(bb, p, hkv, dh, dtype=dtype)
-            v = randn(bb, p, hkv, dh, dtype=dtype)
+            q = randn(bb, p, nq, dh, dtype=dtype)
+            k = randn(bb, p, nkv, dh, dtype=dtype)
+            v = randn(bb, p, nkv, dh, dtype=dtype)
 
             def kern():
                 return flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
@@ -783,31 +814,42 @@ def serving_kernel_phase(dev) -> dict:
                 qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
                 def lib():
-                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                           enable_gqa=True)
 
                 lib_err = _max_abs_err(lib().transpose(1, 2).float(), want.float())
+            extra = ""
+            dk = kernel_head_dim(dh)
+            if dk != dh:  # the padded copy of q, k and v the wrapper makes a call
+                def pad():
+                    return [pad_head_dim(x, dk) for x in (q, k, v)]
+
+                pt = _times(pad, 20, "pad_")
+                extra = (f" pad_to={dk} pad_ms={pt['pad_ms']:.6f} pad_device_ms="
+                         f"{pt['pad_device_ms']:.6f} pad_host_us={pt['pad_host_us']:.2f}")
             pairs = _attn_pairs(p, p, causal, window)
             st = report(
                 "flash_attention", label, dtype, ok, err, tol, kern, plain, 20, lib, lib_err,
-                4.0 * bb * hq * dh * pairs, isz * (2 * q.numel() + k.numel() + v.numel()),
-                _peak_ops(dtype), "tflops",
+                4.0 * bb * nq * dh * pairs, isz * (2 * q.numel() + k.numel() + v.numel()),
+                _peak_ops(dtype), "tflops", extra,
             )
             if dtype == torch.bfloat16 and label.startswith("prefill"):
                 stats["flash_attention"] = st
         # flash decode: the decode shape, ragged lengths with 1 under a
-        # window and under a softcap
-        for label, lens, window, cap in (
-            ("decode q [8, 32, 64], cache [8, 1024, 8, 64], lengths 513-543",
+        # window and under a softcap, a long cache
+        for label, slots, lens, window, cap in (
+            ("decode q [8, 32, 64], cache [8, 1024, 8, 64], lengths 513-543", s_max,
              np.linspace(p + 1, p + SERVE_GEN - 1, b).round().astype(int), None, None),
-            ("window 128, ragged lengths with 1", [1, 2, 100, 129, 512, 700, 1023, 1024],
-             128, None),
-            ("softcap 30, ragged lengths with 1", [1, 3, 64, 200, 513, 600, 900, 1024],
-             None, 30.0),
+            ("window 128, ragged lengths with 1", s_max,
+             [1, 2, 100, 129, 512, 700, 1023, 1024], 128, None),
+            ("softcap 30, ragged lengths with 1", s_max,
+             [1, 3, 64, 200, 513, 600, 900, 1024], None, 30.0),
+            ("long cache q [8, 32, 64], cache [8, 8192, 8, 64], lengths 4000-8192", 8192,
+             np.linspace(4000, 8192, b).round().astype(int), None, None),
         ):
             q = randn(b, hq, hd, dtype=dtype)
-            kc = randn(b, s_max, hkv, hd, dtype=dtype)
-            vc = randn(b, s_max, hkv, hd, dtype=dtype)
+            kc = randn(b, slots, hkv, hd, dtype=dtype)
+            vc = randn(b, slots, hkv, hd, dtype=dtype)
             lengths = torch.tensor(list(lens), dtype=torch.int32, device=dev)
 
             def kern():
@@ -823,14 +865,14 @@ def serving_kernel_phase(dev) -> dict:
             if window is None and cap is None:
                 qt = q[:, :, None, :].contiguous()
                 kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-                mask = (torch.arange(s_max, device=dev)[None, :] < lengths[:, None])[:, None, None]
+                mask = (torch.arange(slots, device=dev)[None, :] < lengths[:, None])[:, None, None]
 
                 def lib():
                     return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                           enable_gqa=True)
 
                 lib_err = _max_abs_err(lib()[:, :, 0].float(), want.float())
-            valid = sum(min(int(n), s_max) - (max(0, int(n) - window) if window else 0)
+            valid = sum(min(int(n), slots) - (max(0, int(n) - window) if window else 0)
                         for n in lens)
             st = report(
                 "decode_attention", label, dtype, ok, err, tol, kern, plain, 50, lib, lib_err,
@@ -985,7 +1027,7 @@ def serving_profile(dev, model, tokens, s_max: int) -> None:
 
     batch, prompt = tokens.shape
 
-    def show(label, prof, wall, want=None):
+    def show(label, prof, wall, want):
         by_kernel: dict[str, float] = {}
         n_device = 0
         for e in prof.events():
@@ -997,12 +1039,12 @@ def serving_profile(dev, model, tokens, s_max: int) -> None:
             print(f"profiled {label}: wall_s={wall:.5f} busy_share=not measured "
                   "(the profiler recorded no device time)")
             return
-        if want is not None:
-            check(any(want in name for name in by_kernel), f"{label} did not run {want}")
+        check(any(want in name for name in by_kernel), f"{label} did not run {want}")
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
         print(
             f"profiled {label}: wall_s={wall:.5f} device_busy_s={busy:.5f} "
-            f"busy_share={busy / wall:.4f} device_events={n_device} top_device_us_and_share="
+            f"busy_share={busy / wall:.4f} device_events={n_device} "
+            f"{_kernel_share(by_kernel, want, wall)} top_device_us_and_share="
             + json.dumps({k[:70]: [round(v, 1), round(v / 1e6 / wall, 4)] for k, v in top})
         )
 
@@ -1023,7 +1065,8 @@ def serving_profile(dev, model, tokens, s_max: int) -> None:
         model.decode_step({"tokens": nxt}, cache, lengths + 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    show(f"decode step (batch {batch}, lengths {prompt + 1})", prof, wall)
+    show(f"decode step (batch {batch}, lengths {prompt + 1})", prof, wall,
+         want="decode_attention_kernel")
     with _CountOps() as ops_count:
         model.decode_step({"tokens": nxt}, cache, lengths + 2)
     print(f"decode step: {ops_count.n} PyTorch operations dispatched "

@@ -63,7 +63,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: library name -> (C entry -> argtypes), every entry returning int
 _ENTRIES = {
-    "maxplus_conv": {"maxplus_conv_batched": [_P, _P, _P, _P, _I, _I, _P]},
+    # dp, f, out, arg, workspace, rows, nb, stream; rows, nb, plan[2] (int64)
+    "maxplus_conv": {
+        "maxplus_conv_batched": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "maxplus_conv_plan": [_I, _I, _P],
+    },
     "maxplus_stage": {
         "maxplus_stage_batched_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "maxplus_stage_batched_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -73,10 +77,11 @@ _ENTRIES = {
         "rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
         "rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _P],
     },
-    # q, k, v, out, b, sq, skv, hq, hkv, d, causal, window, softcap, stream
+    # q, k, v, out, b, sq, skv, hq, hkv, d, causal, window, softcap, scale,
+    # stream
     "flash_attention": {
-        "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-        "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     },
     # q, k_cache, v_cache, lengths (int32), out, b, s, hq, hkv, d, window,
     # softcap, stream

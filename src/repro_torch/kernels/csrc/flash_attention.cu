@@ -6,6 +6,13 @@
 //
 // over the keys j that the causal bound (j <= i) and the sliding window
 // (i - j < window) let through; scale = 1 / sqrt(D), softcap optional.
+// The kernels are instantiated at D = 32, 64 and 128; the wrapper runs any
+// other head dim the model zoo has (80: zamba2-2.7b, hubert-xlarge) by
+// zero-padding q, k and v to the next instantiated D and passing the true
+// scale, 1 / sqrt(80): zero columns add exact zeros to every q . k, and the
+// padded columns of V give output columns the wrapper drops, so the result
+// is the same function (kernels/flash_attention.py says why padding, and
+// not a fourth instantiation).
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attention.py:114, body _flash_kernel at :33),
 // with its masking: masked logits are NEG_INF = -1e30, their
@@ -211,9 +218,8 @@ __global__ void __launch_bounds__(SIMT_BQ)
 
 template <int D>
 int launch_simt(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                int skv, int hq, int hkv, int causal, int window, float softcap,
+                int skv, int hq, int hkv, int causal, int window, float softcap, float scale,
                 cudaStream_t stream) {
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const dim3 grid((sq + SIMT_BQ - 1) / SIMT_BQ, hq, b);
   flash_attention_simt_kernel<float, D><<<grid, SIMT_BQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -679,7 +685,7 @@ bool encode_map(CUtensorMap* map, const void* x, int b, int s, int h, int rows) 
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                 int skv, int hq, int hkv, int causal, int window, float softcap,
+                 int skv, int hq, int hkv, int causal, int window, float softcap, float scale,
                  cudaStream_t stream) {
   using G = Geo<D>;
   if ((sq + BQ - 1) / BQ > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -694,7 +700,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, 
   if (!encode_map<D>(&mq, q, b, sq, hq, BQ) || !encode_map<D>(&mk, k, b, skv, hkv, BK) ||
       !encode_map<D>(&mv, v, b, skv, hkv, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const dim3 grid(hq, b, (sq + BQ - 1) / BQ);
   flash_attention_wgmma_kernel<D><<<grid, THREADS, G::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), sq, skv, hq, hkv, causal, window, softcap,
@@ -713,20 +718,25 @@ extern "C" {
 // Attention of q [b, sq, hq, d] over k, v [b, skv, hkv, d], all contiguous,
 // 16-byte aligned and of one type, into out [b, sq, hq, d], on `stream`.
 // causal: 0 or 1; window: 0 for none; softcap: 0 for none; d: 32, 64 or
-// 128.  Returns cudaGetLastError() right after the launch (0 = launched),
+// 128; scale: the logits' factor, 1 / sqrt(the caller's head dim), which
+// differs from 1 / sqrt(d) where the caller zero-padded its head dim up to
+// d.  Returns cudaGetLastError() right after the launch (0 = launched),
 // or cudaErrorInvalidValue for a shape the kernel does not take.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                          int b, int sq, int skv, int hq, int hkv, int d, int causal,
-                         int window, float softcap, void* stream) {
+                         int window, float softcap, float scale, void* stream) {
   if (!valid_shape(b, sq, skv, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch_wgmma<32>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap, s);
+      return launch_wgmma<32>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap,
+                               scale, s);
     case 64:
-      return launch_wgmma<64>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap, s);
+      return launch_wgmma<64>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap,
+                               scale, s);
     case 128:
-      return launch_wgmma<128>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap, s);
+      return launch_wgmma<128>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap,
+                               scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -734,16 +744,19 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                         int b, int sq, int skv, int hq, int hkv, int d, int causal,
-                        int window, float softcap, void* stream) {
+                        int window, float softcap, float scale, void* stream) {
   if (!valid_shape(b, sq, skv, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch_simt<32>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap, s);
+      return launch_simt<32>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap,
+                               scale, s);
     case 64:
-      return launch_simt<64>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap, s);
+      return launch_simt<64>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap,
+                               scale, s);
     case 128:
-      return launch_simt<128>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap, s);
+      return launch_simt<128>(q, k, v, out, b, sq, skv, hq, hkv, causal, window, softcap,
+                               scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

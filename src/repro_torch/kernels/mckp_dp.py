@@ -10,10 +10,21 @@ Two sources under ``csrc/``, each replacing Pallas TPU kernels of
 
 The build, the loading and the launch counts live in :mod:`build`
 (re-exported here); each wrapper adds one to its counter in
-:data:`launches` per kernel launch, and nowhere else.
+:data:`launches` per kernel launch, and nowhere else.  Both launch through
+:func:`build.call`, which reads the raw stream and switches the device
+only when it is not current.
+
+The dense kernel merges its work items through a workspace of keys and
+counters (``csrc/maxplus_conv.cu``).  The wrapper allocates it for each
+call and the C entry zeroes it on the stream before the launch, so the
+caching allocator orders its reuse across streams and a CUDA graph
+captures it with the launch.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -22,6 +33,7 @@ from repro_torch.kernels.build import (  # noqa: F401  (re-exported)
     NVCC_FLAGS,
     SOURCES,
     build,
+    call,
     check,
     launches,
     library,
@@ -30,28 +42,42 @@ from repro_torch.kernels.build import (  # noqa: F401  (re-exported)
 )
 
 
+@functools.lru_cache(maxsize=64)
+def _plan(rows: int, nb: int) -> tuple[int, int]:
+    """(workspace bytes, work items) of a dense launch over [rows, nb], from
+    the C entry that sizes the launch."""
+    lib = library("maxplus_conv")
+    plan = (ctypes.c_longlong * 2)()
+    check(lib, "maxplus_conv", lib.maxplus_conv_plan(rows, nb, plan))
+    return plan[0], plan[1]
+
+
+def work_items(rows: int, nb: int) -> int:
+    """Work items of one dense launch over [rows, nb] (builds the kernel)."""
+    return _plan(rows, nb)[1]
+
+
 def _launch(dp: torch.Tensor, f: torch.Tensor, counter: str):
-    """One dense-convolution launch over [R, NB] float32 CUDA tensors."""
-    if dp.ndim != 2 or dp.shape != f.shape:
-        raise ValueError(f"dp/f must be equal-shape 2D, got {dp.shape} {f.shape}")
-    if dp.device.type != "cuda" or f.device != dp.device:
+    """One dense-convolution launch over float32 CUDA tensors of one shape,
+    [R, NB] or a single row [NB] (no view is made of it: host time)."""
+    index = dp.get_device()
+    if index < 0 or f.get_device() != index:
         raise ValueError(f"dp/f must lie on one CUDA device, got {dp.device} {f.device}")
     if dp.dtype != torch.float32 or f.dtype != torch.float32:
         raise TypeError(f"dp/f must be float32, got {dp.dtype} {f.dtype}")
-    rows, nb = dp.shape
-    if not 0 < rows <= 65535 or not 0 < nb < 2**31:
+    rows, nb = dp.shape if dp.ndim == 2 else (1, dp.shape[0])
+    if not 0 < rows <= 65535 or not 0 < nb <= 65535 * 256:  # grid limits of the kernel
         raise ValueError(f"unsupported shape {tuple(dp.shape)}")
     dp = dp.contiguous()
     f = f.contiguous()
     out = torch.empty_like(dp)
-    arg = torch.empty((rows, nb), dtype=torch.int32, device=dp.device)
+    arg = torch.empty(dp.shape, dtype=torch.int32, device=dp.device)
     lib = library("maxplus_conv")
-    with torch.cuda.device(dp.device):
-        stream = torch.cuda.current_stream(dp.device).cuda_stream
-        err = lib.maxplus_conv_batched(
-            dp.data_ptr(), f.data_ptr(), out.data_ptr(), arg.data_ptr(),
-            rows, nb, stream,
-        )
+    ws = torch.empty((_plan(rows, nb)[0] + 7) // 8, dtype=torch.int64, device=dp.device)
+    err = call(
+        index, lib.maxplus_conv_batched, dp.data_ptr(), f.data_ptr(), out.data_ptr(),
+        arg.data_ptr(), ws.data_ptr(), rows, nb,
+    )
     check(lib, "maxplus_conv", err)
     launches[counter] += 1
     return out, arg
@@ -59,6 +85,8 @@ def _launch(dp: torch.Tensor, f: torch.Tensor, counter: str):
 
 def maxplus_conv_batched(dp: torch.Tensor, f: torch.Tensor):
     """Row-batched kernel: dp, f [R, NB] float32 on CUDA -> (out, arg)."""
+    if dp.ndim != 2 or dp.shape != f.shape:
+        raise ValueError(f"dp/f must be equal-shape 2D, got {dp.shape} {f.shape}")
     return _launch(dp, f, "maxplus_conv_batched")
 
 
@@ -66,8 +94,7 @@ def maxplus_conv(dp: torch.Tensor, f: torch.Tensor):
     """Single-row kernel: the R = 1 launch of the batched kernel."""
     if dp.ndim != 1 or dp.shape != f.shape:
         raise ValueError(f"dp/f must be equal-length 1D, got {dp.shape} {f.shape}")
-    out, arg = _launch(dp[None], f[None], "maxplus_conv")
-    return out[0], arg[0]
+    return _launch(dp, f, "maxplus_conv")
 
 
 _STAGE_ENTRY = {
@@ -84,7 +111,8 @@ def maxplus_stage_batched(dp: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor):
         raise ValueError(
             f"bad shapes dp={tuple(dp.shape)} kb={tuple(kb.shape)} vb={tuple(vb.shape)}"
         )
-    if dp.device.type != "cuda" or kb.device != dp.device or vb.device != dp.device:
+    index = dp.get_device()
+    if index < 0 or kb.get_device() != index or vb.get_device() != index:
         raise ValueError(
             f"dp/kb/vb must lie on one CUDA device, got {dp.device} {kb.device} {vb.device}"
         )
@@ -104,12 +132,10 @@ def maxplus_stage_batched(dp: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor):
     out = torch.empty_like(dp)
     arg = torch.empty((rows, nb), dtype=torch.int32, device=dp.device)
     lib = library("maxplus_stage")
-    with torch.cuda.device(dp.device):
-        stream = torch.cuda.current_stream(dp.device).cuda_stream
-        err = getattr(lib, entry)(
-            dp.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-            arg.data_ptr(), rows, nb, k, stream,
-        )
+    err = call(
+        index, getattr(lib, entry), dp.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+        out.data_ptr(), arg.data_ptr(), rows, nb, k,
+    )
     check(lib, "maxplus_stage", err)
     launches["maxplus_stage_batched"] += 1
     return out, arg

@@ -98,6 +98,111 @@ def test_scans_match_pallas_interpret():
     _assert_bits(args1.numpy(), w_args1)
 
 
+# ---------------------------------------------------------------------------
+# The CUDA kernel's decomposition (csrc/maxplus_conv.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+
+
+def _key(val: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """The kernel's 64-bit merge key: the float's order-preserving bits, with
+    -0.0 read as +0.0, over 0xFFFFFFFF - k."""
+    u = val.astype(np.float32).view(np.uint32).copy()
+    u[(u << np.uint32(1)) == 0] = 0
+    u = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return (u.astype(np.uint64) << np.uint64(32)) | (
+        np.uint64(0xFFFFFFFF) - k.astype(np.uint64)
+    )
+
+
+def _decomposed_conv(dp, f, *, bt, warps, kw, g):
+    """out, arg as the kernel computes them: items of (b-tile of ``bt``
+    outputs, k-chunk of ``warps * kw``) below the diagonal; inside an item
+    each warp scans its ``kw`` candidates in groups of ``g`` (group max,
+    strict ``>`` over groups, then the first k of the kept group equal to
+    the max); the warps merge in ascending k with strict ``>``; the items
+    merge by max of the 64-bit key; the decode recomputes dp[b - k] + f[k]."""
+    rows, nb = dp.shape
+    kc = warps * kw
+    keys = np.zeros((rows, nb), np.uint64)
+    neg = np.float32(-np.inf)
+    for r in range(rows):
+        for b0 in range(0, nb, bt):
+            bs = np.arange(b0, min(b0 + bt, nb))
+            for k0 in range(0, int(bs[-1]) + 1, kc):
+                ks = np.arange(k0, k0 + kc)
+                idx = bs[:, None] - ks[None, :]
+                dpv = np.where((idx >= 0) & (idx < nb), dp[r, np.clip(idx, 0, nb - 1)], neg)
+                fv = np.where(ks < nb, f[r, np.clip(ks, 0, nb - 1)], neg)
+                cand = (dpv + fv[None, :]).astype(np.float32)  # [outputs, kc]
+                best = np.full(len(bs), neg)
+                kbest = np.full(len(bs), k0)
+                for w in range(warps):
+                    kws = k0 + w * kw
+                    groups = cand[:, w * kw : (w + 1) * kw].reshape(len(bs), kw // g, g)
+                    gmax = groups.max(axis=2)
+                    acc = np.full(len(bs), neg)
+                    grp = np.zeros(len(bs), np.int64)
+                    for gi in range(kw // g):
+                        up = gmax[:, gi] > acc
+                        acc = np.where(up, gmax[:, gi], acc)
+                        grp = np.where(up, gi, grp)
+                    inner = groups[np.arange(len(bs)), grp] == acc[:, None]
+                    k_w = kws + g * grp + inner.argmax(axis=1)
+                    up = (kws <= bs) & (acc > best)
+                    best = np.where(up, acc, best)
+                    kbest = np.where(up, k_w, kbest)
+                live = k0 <= bs
+                keys[r, bs[live]] = np.maximum(keys[r, bs[live]], _key(best, kbest)[live])
+    arg = (np.uint64(0xFFFFFFFF) - (keys & np.uint64(0xFFFFFFFF))).astype(np.int64)
+    rows_i = np.arange(rows)[:, None]
+    out = (dp[rows_i, np.arange(nb)[None, :] - arg] + f[rows_i, arg]).astype(np.float32)
+    return out, arg.astype(np.int32)
+
+
+def _signed_zero_rows(rows: int, nb: int, seed: int):
+    """dp, f whose row maxima are 0.0 reached by -0.0 and +0.0 candidates
+    alike (-0 + -0 = -0, +0 + -0 = +0): the merge must keep the smallest
+    such k and the decode that k's sign."""
+    rng = np.random.default_rng(seed)
+    dp = rng.choice(np.array([-0.0, 0.0, -1.0, -2.5], np.float32), (rows, nb))
+    f = rng.choice(np.array([-0.0, 0.0, -0.5, -np.inf], np.float32), (rows, nb))
+    dp[:, 0] = -0.0
+    f[:, 0] = -0.0
+    return dp, f
+
+
+# the kernel's own sizes, and small ones that cut NB = 129 into many items
+DECOMPOSITIONS = [dict(bt=256, warps=8, kw=128, g=8), dict(bt=16, warps=4, kw=8, g=4)]
+
+
+@pytest.mark.parametrize("sizes", DECOMPOSITIONS, ids=["kernel", "small"])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("nb", [1, 7, 129, 1037])
+def test_decomposed_conv_matches_reference_and_pallas(sizes, rows, nb):
+    dp, f = _inputs(rows, nb, seed=100 * nb + rows)
+    if rows == 3:
+        dp[1] = -np.inf  # every candidate -inf: out -inf, arg 0
+        dp[2], f[2] = _signed_zero_rows(1, nb, seed=nb)
+    out, arg = _decomposed_conv(dp, f, **sizes)
+    want_out, want_arg = ref.maxplus_conv_batched(torch.from_numpy(dp), torch.from_numpy(f))
+    _assert_bits(out, want_out.numpy())
+    _assert_bits(arg, want_arg.numpy())
+    w_out, w_arg = jops.maxplus_conv_batched(jnp.asarray(dp), jnp.asarray(f))
+    _assert_bits(out, w_out)
+    _assert_bits(arg, w_arg)
+    if rows == 3:
+        assert np.all(arg[1] == 0) and np.all(np.isneginf(out[1]))
+
+
+def test_merge_key_orders_as_the_scan():
+    vals = np.array([-np.inf, -3.5, -0.0, 0.0, 0.0, 1.25, 1.25], np.float32)
+    ks = np.array([9, 0, 7, 3, 8, 5, 2])
+    keys = _key(vals, ks)
+    # larger value first, then the smaller k; -0.0 and +0.0 tie
+    assert list(np.argsort(keys)[::-1]) == [6, 5, 3, 2, 4, 1, 0]
+    assert _key(np.float32([-np.inf]), np.array([0]))[0] > 0  # above the zeroed buffer
+
+
 def test_cpu_route_takes_plain_version_without_launching():
     mckp_dp.reset_launches()
     dp, f = _inputs(2, 64, seed=3)
@@ -142,7 +247,9 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "rows, nb", [(1, 1), (1, 7), (1, 11288), (8, 1000), (3, 300), (2, 129)]
+    "rows, nb",
+    [(1, 1), (1, 7), (1, 11288), (8, 1000), (3, 300), (2, 129), (8, 11288),
+     (1, 16384), (8, 16384), (1, 65536)],
 )
 def test_kernel_matches_plain_on_card(cuda, rows, nb):
     dp, f = _inputs(rows, nb, seed=rows * nb)
@@ -160,6 +267,56 @@ def test_kernel_matches_plain_on_card(cuda, rows, nb):
         _assert_bits(s_out.cpu().numpy(), out[r].cpu().numpy())
         _assert_bits(s_arg.cpu().numpy(), arg[r].cpu().numpy())
     assert mckp_dp.launches["maxplus_conv"] == rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [129, 1037, 11288])
+def test_kernel_signed_zero_and_neg_inf_rows_on_card(cuda, nb):
+    dp, f = _inputs(3, nb, seed=nb)
+    dp[1] = -np.inf
+    dp[2], f[2] = _signed_zero_rows(1, nb, seed=nb)
+    dp_t, f_t = torch.from_numpy(dp).to(cuda), torch.from_numpy(f).to(cuda)
+    out, arg = mckp_dp.maxplus_conv_batched(dp_t, f_t)
+    want_out, want_arg = ref.maxplus_conv_batched(dp_t, f_t)
+    _assert_bits(out.cpu().numpy(), want_out.cpu().numpy())
+    _assert_bits(arg.cpu().numpy(), want_arg.cpu().numpy())
+    assert bool((arg[1] == 0).all())
+
+
+@pytest.mark.gpu
+def test_kernel_workspace_per_call_on_card(cuda):
+    """Calls of other shapes, one after another and on a second stream, each
+    give the plain version's bits; a CUDA graph captured at one shape
+    replays the eager result after a larger call has run in between."""
+    cases = [_inputs(rows, nb, seed=rows + nb) for rows, nb in ((2, 5000), (1, 300), (2, 5000))]
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for dp, f in cases:
+                dp_t, f_t = torch.from_numpy(dp).to(cuda), torch.from_numpy(f).to(cuda)
+                out, arg = mckp_dp.maxplus_conv_batched(dp_t, f_t)
+                want_out, want_arg = ref.maxplus_conv_batched(dp_t, f_t)
+                _assert_bits(out.cpu().numpy(), want_out.cpu().numpy())
+                _assert_bits(arg.cpu().numpy(), want_arg.cpu().numpy())
+    torch.cuda.synchronize()
+
+    dp, f = (torch.from_numpy(x).to(cuda) for x in _inputs(2, 3000, seed=7))
+    want_out, want_arg = mckp_dp.maxplus_conv_batched(dp, f)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_arg = mckp_dp.maxplus_conv_batched(dp, f)
+    big_dp, big_f = (torch.from_numpy(x).to(cuda) for x in _inputs(4, 12000, seed=8))
+    big_out, big_arg = mckp_dp.maxplus_conv_batched(big_dp, big_f)
+    for _ in range(3):
+        g_out.fill_(0.0)
+        g_arg.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_bits(g_out.cpu().numpy(), want_out.cpu().numpy())
+        _assert_bits(g_arg.cpu().numpy(), want_arg.cpu().numpy())
+    want_big = ref.maxplus_conv_batched(big_dp, big_f)
+    _assert_bits(big_out.cpu().numpy(), want_big[0].cpu().numpy())
+    _assert_bits(big_arg.cpu().numpy(), want_big[1].cpu().numpy())
 
 
 @pytest.mark.gpu

@@ -253,6 +253,123 @@ def test_decode_plain_window_softcap_matches_pallas(name, window, softcap):
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(name))
 
 
+def _split_decode_model(q, kc, vc, lengths, *, splits, slots=4, window=None, softcap=None):
+    """Decode attention as the split-KV kernel (csrc/decode_attention.cu)
+    computes it, in float32 numpy: each of ``splits`` blocks of a (sequence,
+    KV head) takes its even share of the valid keys; inside, ``slots`` key
+    streams each run the one-expf online softmax over every ``slots``-th
+    key, merged pairwise; the combine weights every partial by e^(m_i - m)
+    and divides by max(l, 1e-30)."""
+    q, kc, vc = (np.asarray(a, np.float32) for a in (q, kc, vc))
+    b, hq, d = q.shape
+    _, s, hkv, _ = kc.shape
+    group = hq // hkv
+    neg = np.float32(-1e30)
+    out = np.zeros((b, hq, d), np.float32)
+
+    def merge(a, c):
+        mx = np.maximum(a[0], c[0])
+        wa, wc = np.exp(a[0] - mx), np.exp(c[0] - mx)
+        return mx, a[1] * wa + c[1] * wc, a[2] * wa[:, None] + c[2] * wc[:, None]
+
+    for bi in range(b):
+        n_len = int(lengths[bi])
+        end = min(n_len, s)
+        begin = max(0, n_len - window) if window else 0
+        n = max(0, end - begin)
+        for hk in range(hkv):
+            qs = q[bi, hk * group : (hk + 1) * group] * np.float32(1.0 / np.sqrt(d))
+            parts = []
+            for sp in range(splits):
+                lo, hi = begin + n * sp // splits, begin + n * (sp + 1) // splits
+                streams = []
+                for sl in range(slots):
+                    m = np.full(group, neg)
+                    den = np.zeros(group, np.float32)
+                    acc = np.zeros((group, d), np.float32)
+                    for j in range(lo + sl, hi, slots):
+                        x = qs @ kc[bi, j, hk]
+                        if softcap:
+                            x = np.float32(softcap) * np.tanh(x / np.float32(softcap))
+                        e = np.exp(-np.abs(x - m))
+                        up = x > m
+                        cs, pr = np.where(up, e, 1.0), np.where(up, 1.0, e)
+                        m = np.where(up, x, m)
+                        den = den * cs + pr
+                        acc = acc * cs[:, None] + pr[:, None] * vc[bi, j, hk][None, :]
+                    streams.append((m, den, acc))
+                while len(streams) > 1:
+                    streams = [merge(streams[i], streams[i + 1]) for i in range(0, len(streams), 2)]
+                parts.append(streams[0])
+            mx = np.max([pt[0] for pt in parts], axis=0)
+            den = sum(np.exp(pt[0] - mx) * pt[1] for pt in parts)
+            num = sum(np.exp(pt[0] - mx)[:, None] * pt[2] for pt in parts)
+            out[bi, hk * group : (hk + 1) * group] = num / np.maximum(den, 1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 8])
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,d,lengths,window,softcap",
+    [
+        (3, 96, 8, 2, 64, [1, 50, 96], None, None),  # length 1: splits left empty
+        (4, 64, 16, 1, 32, [64, 5, 33, 2], None, None),  # group 16
+        (3, 80, 4, 2, 80, [80, 40, 3], 2, None),  # window 2: most splits empty; head dim 80
+        (2, 128, 8, 2, 32, [128, 70], 48, 30.0),
+    ],
+)
+def test_split_decode_model_matches_reference_and_pallas(splits, b, s, hq, hkv, d, lengths,
+                                                         window, softcap):
+    j_in, t_in = _decode_inputs(s + d, b, s, hq, hkv, d, "float32", lengths=lengths)
+    got = _split_decode_model(*(t.numpy() for t in t_in), splits=splits, window=window,
+                              softcap=softcap)
+    want = ref.decode_attention_reference(*t_in, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, want.numpy(), **_tol("float32"))
+    want_k = jdk.decode_attention(*j_in, window=window, softcap=softcap, block_k=32)
+    np.testing.assert_allclose(got, _f32(want_k), **_tol("float32"))
+
+
+def _scaled_attention(q, k, v, *, scale, causal):
+    """float32 attention with the logits' factor given, as the flash kernel
+    takes it: the model of a launch at the padded head dim."""
+    b, tq, hq, _ = q.shape
+    hkv = k.shape[2]
+    qf = q.reshape(b, tq, hkv, hq // hkv, -1)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k) * scale
+    if causal:
+        tk = k.shape[1]
+        keep = torch.arange(tq)[:, None] >= torch.arange(tk)[None, :]
+        logits = torch.where(keep, logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(b, tq, hq, -1)
+
+
+def test_flash_kernel_head_dims():
+    assert [tfk.kernel_head_dim(d) for d in (8, 32, 40, 64, 80, 128)] == [32, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="head dim"):
+        tfk.kernel_head_dim(136)
+    x = torch.ones(2, 3, 4, 64)
+    assert tfk.pad_head_dim(x, 64) is x
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_head_dim_80_through_padding(causal):
+    """Head dim 80 runs the D = 128 kernel on zero-padded q, k, v with the
+    scale 1/sqrt(80): the same function as attention at 80, to float32
+    rounding (the padded sum adds exact zeros; the logits multiply by
+    1/sqrt(80) where the plain version divides by sqrt(80))."""
+    (jq, jk, jv), (q, k, v) = _qkv(80 + causal, 2, 64, 64, 4, 2, 80, "float32")
+    dk = tfk.kernel_head_dim(80)
+    assert dk == 128
+    qp, kp, vp = (tfk.pad_head_dim(t, dk) for t in (q, k, v))
+    assert qp.shape[-1] == dk and torch.equal(qp[..., 80:], torch.zeros_like(qp[..., 80:]))
+    got = _scaled_attention(qp, kp, vp, scale=1.0 / np.sqrt(80), causal=causal)[..., :80]
+    want = ref.mha_reference(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    want_k = jfk.flash_attention(jq, jk, jv, causal=causal, block_q=32, block_k=32)
+    np.testing.assert_allclose(got.numpy(), _f32(want_k), **_tol("float32"))
+
+
 # ---------------------------------------------------------------------------
 # Routes, wrappers and sources
 # ---------------------------------------------------------------------------
@@ -393,6 +510,10 @@ def test_flash_kernel_matches_plain_on_card(cuda, name, b, sq, skv, hq, hkv, d, 
         (3, 200, 4, 4, 32, [1, 77, 200], None, None),
         (4, 256, 8, 2, 64, [1, 100, 256, 31], 32, 30.0),
         (2, 300, 32, 2, 128, [300, 5], 64, None),
+        (2, 256, 32, 2, 128, [256, 17], None, None),  # group 16 (chatglm3-6b)
+        (3, 200, 8, 4, 80, [1, 150, 200], 64, None),  # head dim 80
+        (8, 8192, 32, 8, 64, [4000, 4600, 5200, 5800, 6400, 7000, 7600, 8192], None,
+         None),  # a long cache
     ],
 )
 def test_decode_kernel_matches_plain_on_card(cuda, name, b, s, hq, hkv, d, lengths, window,
@@ -452,6 +573,31 @@ def test_flash_bf16_graph_replay_matches_eager(cuda):
     q, k, v = _card(t_in, cuda)
     eager = tfk.flash_attention(q, k, v, window=128)
     assert torch.equal(_replayed(lambda: tfk.flash_attention(q, k, v, window=128)), eager)
+
+
+@pytest.mark.gpu
+def test_decode_graph_replay_matches_eager(cuda):
+    lengths = [513, 520, 527, 530, 535, 538, 540, 543]
+    _, t_in = _decode_inputs(9, 8, 1024, 32, 8, 64, "bfloat16", lengths=lengths)
+    q, kc, vc, lens = _card(t_in, cuda)
+    eager = tdk.decode_attention(q, kc, vc, lens)
+    assert torch.equal(_replayed(lambda: tdk.decode_attention(q, kc, vc, lens)), eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "hq,causal", [(32, True), (16, False)], ids=["zamba2-causal", "hubert-bidirectional"]
+)
+def test_flash_kernel_head_dim_80_on_card(cuda, name, hq, causal):
+    _, t_in = _qkv(hq + causal, 2, 512, 512, hq, hq, 80, name)
+    q, k, v = _card(t_in, cuda)
+    build.reset_launches()
+    got = tfk.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention"] == 1 and got.shape == q.shape
+    want = ref.mha_reference(q, k, v, causal=causal)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), **_tol(name))
 
 
 @pytest.mark.gpu
