@@ -23,14 +23,20 @@ Phases, each of which exits non-zero on failure before the last line:
  5. one ungrouped round and one ``allocate_batch`` budget sweep, each held
     against its plain-version run;
  6. the sparse-option (max,+) stage kernel against its plain version on
-    the card, bitwise on values and backpointers, at the fused main path's
-    shapes (float64) and a ragged one (float64 and float32);
+    the card, bitwise on values and backpointers, through both entries:
+    the single-stage one at the fused main path's stage shape (float64)
+    and a ragged one (float64 and float32), and the multi-stage one (all
+    stages of a fused round in one launch, masked) at the fused main path's
+    40 stages, ragged rows and an NB beyond shared memory, with its launch
+    plan (route, grid blocks, shared memory), times and bound;
  7. the fused main path: the same scenario at 2048 nodes (the widest flat
     grid the fused round takes) under the default EcoShift controller with
     ``fused=True`` and with the default host sparse solver, bitwise equal
     round by round, every solved round on the device with no fallback, and
-    the stage kernel launched once per padded stage of every fused round;
-    then the device busy share of one fused round;
+    the multi-stage kernel launched once per fused round (the single-stage
+    entry never); then the device busy share of one fused round, the
+    kernel's share of it and ``dispatch_s``, and the kernel timed on the
+    round's resident banks;
  8. the serving kernels (RMSNorm, flash attention, flash decode) against
     their plain PyTorch versions on the card, in bf16 and float32, at the
     serving path's shapes, a sliding-window and a softcap shape, ragged
@@ -487,21 +493,56 @@ def _sparse_stage_inputs(rows: int, nb: int, k: int, dtype, seed: int, dev):
     )
 
 
+def _stages_bound_ms(kb, vb, nb: int, itemsize: int) -> tuple[float, str, float]:
+    """Least time for S sparse-option stages over kb, vb [S, R, K]: the
+    (b, j) candidates this data needs (vb > -inf and 0 <= b - kb < nb),
+    one add and one compare each in the stages' type; dp0, kb, vb and tmax
+    read once, out and wins written once.  Also returns the share of all
+    S * R * NB * K candidates that the data needs."""
+    import torch
+
+    stages, rows, k = kb.shape
+    kbl = kb.long()
+    span = (torch.clamp(nb + kbl, max=nb) - kbl.clamp(min=0)).clamp(min=0)
+    needed = float((span * (vb > -torch.inf)).sum())
+    ops = 2.0 * needed
+    nbytes = rows * (2 * itemsize * nb + 4) + stages * rows * ((4 + itemsize) * k + 4 * nb)
+    peak = PEAK_F64_OPS if itemsize == 8 else PEAK_F32_OPS
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            needed / (stages * rows * nb * k))
+
+
+def _sparse_stages_inputs(stages: int, rows: int, nb: int, k: int, dtype, seed: int, dev):
+    """dp0 [rows, nb] and tmax [rows] int32 (in [nb / 2, nb]), and kb, vb
+    [stages, rows, k] made stage by stage as :func:`_sparse_stage_inputs`
+    makes them."""
+    import numpy as np
+    import torch
+
+    dp0, _, _ = _sparse_stage_inputs(rows, nb, k, dtype, seed, dev)
+    banks = [_sparse_stage_inputs(rows, nb, k, dtype, seed + 1 + s, dev)[1:]
+             for s in range(stages)]
+    tmax = np.random.default_rng(seed).integers(nb // 2, nb + 1, rows).astype(np.int32)
+    return (dp0, torch.stack([b[0] for b in banks]), torch.stack([b[1] for b in banks]),
+            torch.as_tensor(tmax, device=dev))
+
+
 def stage_kernel_phase(dev) -> dict:
     """Phase 6: the sparse-option stage kernel against its plain version,
-    bitwise on out and arg; returns the measured stats at the fused main
-    path's shape."""
+    bitwise on values and backpointers, through the single-stage and the
+    multi-stage entry; returns the measured stats of the multi-stage
+    launch at the fused main path's shape."""
     import torch
 
     from repro_torch.kernels import mckp_dp, ref
 
     cases = [
-        ("fused main path, 2048 nodes", 1, 4096, 1024, torch.float64),
-        ("fused round at 256 nodes", 1, 512, 128, torch.float64),
+        ("fused main path stage, 2048 nodes", 1, 4096, 1024, torch.float64),
+        ("fused round stage at 256 nodes", 1, 512, 128, torch.float64),
         ("ragged, ties, -inf padding", 3, 1037, 37, torch.float64),
         ("ragged, ties, -inf padding", 3, 1037, 37, torch.float32),
     ]
-    stats = {}
     for i, (label, rows, nb, k, dtype) in enumerate(cases):
         dp, kb, vb = _sparse_stage_inputs(rows, nb, k, dtype, SEED + 10 + i, dev)
         out, arg = mckp_dp.maxplus_stage_batched(dp, kb, vb)
@@ -515,19 +556,69 @@ def stage_kernel_phase(dev) -> dict:
         ms = t["ms"]
         plain_ms = _cuda_ms(lambda: ref.maxplus_stage_batched(dp, kb, vb), iters=5, warmup=1)
         bound_ms, bound_by = _stage_bound_ms(rows, nb, k, dp.element_size())
+        resident, blocks, smem = mckp_dp.stages_plan(dev.index or 0, rows, nb, dp.element_size())
         print(
             f"stage kernel {label}: rows={rows} nb={nb} k={k} {dtype} bitwise "
             f"out+arg ok, max_abs_err={err} ms={ms:.6f} device_ms={t['device_ms']:.6f} "
             f"host_us={t['host_us']:.2f} plain_ms={plain_ms:.6f} "
-            f"bound_ms={bound_ms:.6f} ({bound_by}) roofline_share={bound_ms / ms:.4f} "
-            f"plain_over_kernel={plain_ms / ms:.1f} library_ms=null (no PyTorch "
-            f"call computes a sparse-option (max,+) stage)"
+            f"bound_ms={bound_ms:.6f} ({bound_by}, every candidate) "
+            f"roofline_share={bound_ms / t['device_ms']:.4f} "
+            f"plain_over_kernel={plain_ms / ms:.1f} resident={resident} blocks={blocks} "
+            f"smem={smem} library_ms=null (no PyTorch call computes a sparse-option "
+            f"(max,+) stage)"
+        )
+
+    multi = [
+        ("fused main path, 2048 nodes", 40, 1, 4096, 1024, torch.float64),
+        ("ragged rows", 7, 3, 1037, 37, torch.float64),
+        ("ragged rows", 7, 3, 1037, 37, torch.float32),
+        ("dp beyond shared memory", 3, 2, 32768, 64, torch.float64),
+        ("dp beyond shared memory", 3, 2, 65536, 64, torch.float32),
+    ]
+    stats = {}
+    for i, (label, stages, rows, nb, k, dtype) in enumerate(multi):
+        dp0, kb, vb, tmax = _sparse_stages_inputs(stages, rows, nb, k, dtype, SEED + 30 + i, dev)
+        mckp_dp.reset_launches()
+        got_dp, got_wins = mckp_dp.maxplus_stages_batched(dp0, kb, vb, tmax)
+        check(mckp_dp.launches["maxplus_stages_batched"] == 1
+              and mckp_dp.launches["maxplus_stage_batched"] == 0,
+              f"multi-stage call launched {dict(mckp_dp.launches)}")
+        want_dp, want_wins = ref.maxplus_stages_batched(dp0, kb, vb, tmax)
+        check(
+            _bits_equal(got_dp, want_dp) and _bits_equal(got_wins, want_wins),
+            f"multi-stage kernel != plain version for {label} {dtype}",
+        )
+        err = _max_abs_err(got_dp, want_dp)
+        t = _times(lambda: mckp_dp.maxplus_stages_batched(dp0, kb, vb, tmax), iters=20)
+        plain_ms = _cuda_ms(lambda: ref.maxplus_stages_batched(dp0, kb, vb, tmax),
+                            iters=3, warmup=1)
+        bound_ms, bound_by, needed = _stages_bound_ms(kb, vb, nb, dp0.element_size())
+        dense_ms = stages * _stage_bound_ms(rows, nb, k, dp0.element_size())[0]
+        resident, blocks, smem = mckp_dp.stages_plan(
+            dev.index or 0, rows, nb, dp0.element_size())
+        print(
+            f"stages kernel {label}: stages={stages} rows={rows} nb={nb} k={k} {dtype} "
+            f"bitwise dp+wins ok, max_abs_err={err} launches_a_call=1 ms={t['ms']:.6f} "
+            f"device_ms={t['device_ms']:.6f} host_us={t['host_us']:.2f} "
+            f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}, the "
+            f"{needed:.4f} of candidates this data needs) "
+            f"roofline_share={bound_ms / t['device_ms']:.4f} "
+            f"dense_bound_ms={dense_ms:.6f} (S x the stage bound) "
+            f"dense_roofline_share={dense_ms / t['device_ms']:.4f} "
+            f"resident={resident} blocks={blocks} smem={smem} library_ms=null"
         )
         if i == 0:
             stats = {
                 "max_abs_err": err, **t, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
+            # a stage's fixed cost (barrier, row reload, merge): the same
+            # launch with 32 options a stage; the rest is the option scan
+            few = _sparse_stages_inputs(stages, rows, nb, 32, dtype, SEED + 30, dev)
+            fixed = _graph_ms(lambda: mckp_dp.maxplus_stages_batched(*few)) / stages * 1e3
+            print(f"stages kernel split: {stages} stages, k=32 device_ms/stage="
+                  f"{fixed / 1e3:.6f} (fixed_us={fixed:.2f}), k={k} scan_us/stage="
+                  f"{t['device_ms'] / stages * 1e3 - fixed:.2f}")
     return stats
 
 
@@ -567,7 +658,8 @@ def _run_sparse(sim, scen, dev, fused: bool):
 
 
 def fused_main_path_phase(dev, fresh_sim, scen) -> int:
-    """Phase 7; returns the stage kernel's launches on the fused main path."""
+    """Phase 7; returns the multi-stage kernel's launches on the fused main
+    path."""
     from repro_torch.kernels import mckp_dp
 
     mckp_dp.reset_launches()
@@ -590,8 +682,9 @@ def fused_main_path_phase(dev, fresh_sim, scen) -> int:
             f"a main-path round ran on {e['solver']!r} ({e['reason']!r})",
         )
     check(
-        launches["maxplus_stage_batched"] == sum(pads),
-        "stage launches != padded stages of the fused rounds",
+        launches["maxplus_stages_batched"] == len(pads)
+        and launches["maxplus_stage_batched"] == 0,
+        "multi-stage launches != fused rounds, or a single-stage launch",
     )
     check(launches["maxplus_conv_batched"] == launches["maxplus_conv"] == 0,
           "the fused path launched a dense kernel")
@@ -621,17 +714,19 @@ def fused_main_path_phase(dev, fresh_sim, scen) -> int:
             )
         print(line)
     print(f"fused stats: {stats}")
-    return launches["maxplus_stage_batched"]
+    return launches["maxplus_stages_batched"]
 
 
 def fused_busy_share_phase(dev, fresh_sim) -> None:
     """Device busy share of one warm fused round (banks resident, budget
     moved by 25 W so the round solves), from torch.profiler."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.cluster import make_controller
     from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
 
     sim = fresh_sim()
     ctrl = make_controller("ecoshift", types.SYSTEM_2, fused=True, device=dev)
@@ -652,7 +747,11 @@ def fused_busy_share_phase(dev, fresh_sim) -> None:
     if device_s:
         print(
             f"profiled fused round: wall_s={wall:.4f} device_busy_s={device_s:.6f} "
-            f"busy_share={device_s / wall:.4f} segments={segs} "
+            f"busy_share={device_s / wall:.4f} "
+            f"{_kernel_share(by_kernel, 'maxplus_stages_kernel', wall)} "
+            f"kernel_share_of_busy="
+            f"{sum(v for k, v in by_kernel.items() if 'maxplus_stages_kernel' in k) / 1e6 / device_s:.4f} "
+            f"dispatch_s={ctrl.fused_segments()['dispatch_s']:.6f} segments={segs} "
             f"round_seconds={json.dumps({k: round(v, 6) for k, v in sim.last_round_seconds.items()})} "
             f"top_device_us_and_share="
             + json.dumps(
@@ -662,6 +761,21 @@ def fused_busy_share_phase(dev, fresh_sim) -> None:
     else:
         print(f"profiled fused round: wall_s={wall:.4f} busy_share=not measured "
               "(the profiler recorded no device time)")
+    # the kernel alone on the round's resident banks (the mask moves no work)
+    fs = ctrl._fused_state
+    kb, vb = fs.kb_dev, fs.vb_dev
+    nb = fs.shape[4]
+    dp0 = torch.full((kb.shape[1], nb), -torch.inf, dtype=vb.dtype, device=vb.device)
+    dp0[:, 0] = 0.0
+    t = _times(lambda: mckp_dp.maxplus_stages_batched(dp0, kb, vb), iters=20)
+    bound_ms, bound_by, needed = _stages_bound_ms(kb, vb, nb, vb.element_size())
+    print(
+        f"stages kernel on the fused round's banks: S={kb.shape[0]} L={kb.shape[1]} "
+        f"K={kb.shape[2]} NB={nb} ms={t['ms']:.6f} device_ms={t['device_ms']:.6f} "
+        f"host_us={t['host_us']:.2f} bound_ms={bound_ms:.6f} ({bound_by}, the "
+        f"{needed:.4f} of candidates these banks need) "
+        f"roofline_share={bound_ms / t['device_ms']:.4f}"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -1157,7 +1271,7 @@ def main() -> int:
     busy_share_phase(dev, fresh_sim)
     launches["maxplus_conv"] = variants_phase(dev, fresh_sim)
 
-    stats["maxplus_stage_batched"] = stage_kernel_phase(dev)
+    stats["maxplus_stages_batched"] = stage_kernel_phase(dev)
 
     def fresh_fused_sim():
         return ClusterSim.build(
@@ -1171,7 +1285,7 @@ def main() -> int:
         .with_failure(1, recv_f[0].node_id)
         .with_straggler(2, recv_f[1].node_id, 1.8)
     )
-    launches["maxplus_stage_batched"] = fused_main_path_phase(dev, fresh_fused_sim, scen_f)
+    launches["maxplus_stages_batched"] = fused_main_path_phase(dev, fresh_fused_sim, scen_f)
     fused_busy_share_phase(dev, fresh_fused_sim)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
@@ -1184,7 +1298,7 @@ def main() -> int:
     sources = {
         "maxplus_conv_batched": "maxplus_conv",
         "maxplus_conv": "maxplus_conv",
-        "maxplus_stage_batched": "maxplus_stage",
+        "maxplus_stages_batched": "maxplus_stage",
         "rmsnorm": "rmsnorm",
         "flash_attention": "flash_attention",
         "decode_attention": "decode_attention",
@@ -1192,7 +1306,7 @@ def main() -> int:
     replaces = {
         "maxplus_conv_batched": "src/repro/kernels/mckp_dp.py:194",
         "maxplus_conv": "src/repro/kernels/mckp_dp.py:247",
-        "maxplus_stage_batched": "src/repro/kernels/mckp_dp.py:126",
+        "maxplus_stages_batched": "src/repro/kernels/mckp_dp.py:126",
         "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
         "flash_attention": "src/repro/kernels/flash_attention.py:114",
         "decode_attention": "src/repro/kernels/decode_attention.py:96",

@@ -1190,21 +1190,14 @@ def _fused_leaf_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched leaf super-stage DPs on the banks' device.
 
-    One sparse-option (max,+) stage launch per padded stage over all L
-    leaf rows (``kops.maxplus_stage_batched``: the CUDA kernel for CUDA
-    banks), each followed by the per-leaf feasibility mask — the device
-    image of ``_superstage_dp_batch``'s ``out[li, tmax+1:] = -inf``.
+    All padded stages over all L leaf rows in one call
+    (``kops.maxplus_stages_batched``: one kernel launch for CUDA banks),
+    each stage followed by the per-leaf feasibility mask — the device image
+    of ``_superstage_dp_batch``'s ``out[li, tmax+1:] = -inf``.
     Returns (dp [L, NB], wins [S, L, NB] int32 backpointers)."""
-    n_stages, n_leaves, _ = kb.shape
-    dp = torch.full((n_leaves, nb), -torch.inf, dtype=vb.dtype, device=vb.device)
+    dp = torch.full((kb.shape[1], nb), -torch.inf, dtype=vb.dtype, device=vb.device)
     dp[:, 0] = 0.0
-    over = torch.arange(nb, device=vb.device)[None, :] > tmax_leaf[:, None]
-    wins = []
-    for s in range(n_stages):
-        out, arg = kops.maxplus_stage_batched(dp, kb[s], vb[s])
-        dp = torch.where(over, -torch.inf, out)
-        wins.append(arg)
-    return dp, torch.stack(wins)
+    return kops.maxplus_stages_batched(dp, kb, vb, tmax_leaf)
 
 
 def _fused_run(

@@ -53,6 +53,7 @@ launches: dict[str, int] = {
     "maxplus_conv": 0,
     "maxplus_conv_batched": 0,
     "maxplus_stage_batched": 0,
+    "maxplus_stages_batched": 0,
     "rmsnorm": 0,
     "flash_attention": 0,
     "decode_attention": 0,
@@ -68,9 +69,12 @@ _ENTRIES = {
         "maxplus_conv_batched": [_P, _P, _P, _P, _P, _I, _I, _P],
         "maxplus_conv_plan": [_I, _I, _P],
     },
+    # dp0, kb, vb, tmax, out, wins, ws, stages, rows, nb, k, stream; rows,
+    # nb, itemsize, plan[3]
     "maxplus_stage": {
-        "maxplus_stage_batched_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "maxplus_stage_batched_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "maxplus_stages_batched_f64": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "maxplus_stages_batched_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "maxplus_stages_plan": [_I, _I, _I, _P],
     },
     # x, scale (float32), out, rows, d, eps, stream
     "rmsnorm": {

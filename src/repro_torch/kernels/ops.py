@@ -43,6 +43,16 @@ def maxplus_stage_batched(dp: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor):
     return _ref.maxplus_stage_batched(dp, kb, vb)
 
 
+def maxplus_stages_batched(dp0, kb, vb, tmax=None):
+    """S sparse-option stages, the fused round's leaf scan: dp0 [R, NB],
+    kb [S, R, K] int32, vb [S, R, K] of dp0's type, tmax [R] int32 or None
+    (each stage's out set to -inf where b > tmax[r]).  One kernel launch on
+    the card.  Returns (dp [R, NB], wins [S, R, NB] int32)."""
+    if dp0.is_cuda:
+        return _mckp_dp.maxplus_stages_batched(dp0, kb, vb, tmax)
+    return _ref.maxplus_stages_batched(dp0, kb, vb, tmax)
+
+
 def bank_compact(kb_old, vb_old, src_s, src_l, *, k_pad: int):
     """Repack the fused round's resident option banks into a new layout.
 

@@ -87,6 +87,36 @@ def maxplus_stage_batched(
     return out, arg
 
 
+def maxplus_stages_batched(
+    dp0: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor, tmax: torch.Tensor | None = None
+):
+    """S row-batched sparse-option stages: the JAX leaf scan's body
+    (``repro.core.mckp``'s ``leaf_scan``) run as a loop.
+
+    dp0: [R, NB]; kb, vb: [S, R, K]; tmax: [R] integer or None.  Stage ``s``
+    is :func:`maxplus_stage_batched` over ``kb[s], vb[s]``; its out is set
+    to -inf where ``b > tmax[r]`` (when given) and feeds stage ``s + 1``.
+    Returns (dp [R, NB] the last stage's masked out, wins [S, R, NB] int32
+    each stage's arg).
+    """
+    if dp0.ndim != 2 or kb.ndim != 3 or kb.shape != vb.shape or kb.shape[1] != dp0.shape[0]:
+        raise ValueError(
+            f"bad shapes dp0={tuple(dp0.shape)} kb={tuple(kb.shape)} vb={tuple(vb.shape)}"
+        )
+    if kb.shape[0] == 0:
+        raise ValueError("a scan needs at least one stage")
+    r, nb = dp0.shape
+    over = None
+    if tmax is not None:
+        over = torch.arange(nb, device=dp0.device)[None, :] > tmax[:, None]
+    dp = dp0
+    wins = torch.empty((kb.shape[0], r, nb), dtype=torch.int32, device=dp0.device)
+    for s in range(kb.shape[0]):
+        out, wins[s] = maxplus_stage_batched(dp, kb[s], vb[s])
+        dp = out if over is None else torch.where(over, -torch.inf, out)
+    return dp, wins
+
+
 # ---------------------------------------------------------------------------
 # The serving path: RMSNorm and attention (repro/kernels/ref.py:56-126)
 # ---------------------------------------------------------------------------

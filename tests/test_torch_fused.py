@@ -410,5 +410,6 @@ def test_fused_round_on_card_matches_reference(cuda, reference_run):
     _assert_records_equal(got, want)
     assert [("host" if s == "fused" else s) for s in log] == want_log
     assert ctrl.fused_stats().fallbacks == 0
-    # one stage launch per padded stage of every fused round
-    assert mckp_dp.launches["maxplus_stage_batched"] == sum(pads) > 0
+    # one multi-stage launch per fused round, no single-stage launch
+    assert mckp_dp.launches["maxplus_stages_batched"] == len(pads) > 0
+    assert mckp_dp.launches["maxplus_stage_batched"] == 0

@@ -214,7 +214,7 @@ def test_cpu_route_takes_plain_version_without_launching():
     _assert_bits(arg.numpy(), want_arg.numpy())
     assert mckp_dp.launches == {
         "maxplus_conv": 0, "maxplus_conv_batched": 0, "maxplus_stage_batched": 0,
-        "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+        "maxplus_stages_batched": 0, "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
     }
 
 

@@ -420,7 +420,7 @@ def test_kernel_sources_name_the_replaced_tpu_kernels():
     assert "--use_fast_math" not in " ".join(build.NVCC_FLAGS)
     assert set(build.launches) == {
         "maxplus_conv", "maxplus_conv_batched", "maxplus_stage_batched",
-        "rmsnorm", "flash_attention", "decode_attention",
+        "maxplus_stages_batched", "rmsnorm", "flash_attention", "decode_attention",
     }
 
 
