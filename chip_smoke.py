@@ -37,7 +37,22 @@ Phases, each of which exits non-zero on failure before the last line:
     entry never); then the device busy share of one fused round, the
     kernel's share of it and ``dispatch_s``, and the kernel timed on the
     round's resident banks;
- 8. the serving kernels (RMSNorm, flash attention, flash decode) against
+ 8. the policy comparison at the benchmarks' settings: NCF trained on
+    the card on 28 of the 40 apps (2000 steps), a second fit from the same
+    seed bitwise equal, the card's fit against the host's on one injected
+    stream, the 12 held-out apps onboarded online and their accuracy held
+    above ACC_BOUND; then the 256-node cluster over a four-budget sweep
+    under uniform, DPS, MixedAdaptive, EcoShift on predicted surfaces (the
+    dense kernel), the Oracle (sparse DP) and ``ecoshift_online``, with
+    every round's average improvement, Jain index and spend (never above
+    the budget) and each policy's gap to the Oracle; the Oracle's brute
+    force against its sparse DP at 8 receivers, bitwise; and the online
+    loop at benchmarks/online_adaptation.py's settings (30 nodes of the 28
+    known apps, 16 rounds) with a held-out app arriving cold, on the kernel
+    and on the plain version, bitwise equal, the cold app fit from its own
+    telemetry, with refits, invalidations, refresh seconds and the cold
+    app's gap to the Oracle a round;
+ 9. the serving kernels (RMSNorm, flash attention, flash decode) against
     their plain PyTorch versions on the card, in bf16 and float32, at the
     serving path's shapes, a sliding-window and a softcap shape, ragged
     decode lengths that include 1, a long decode cache (8192 slots) and
@@ -46,7 +61,7 @@ Phases, each of which exits non-zero on failure before the last line:
     time), each with its time, the plain version's, its bound and one
     library call's (``torch.nn.functional.rms_norm``,
     ``scaled_dot_product_attention``; the port never calls them);
- 9. the serving path: granite-3-2b at its full config (40 layers, bf16
+10. the serving path: granite-3-2b at its full config (40 layers, bf16
     compute, float32 weights drawn from a seed) through
     ``ServeEngine.generate`` for 8 requests of 512 prompt tokens and 32
     greedy tokens (cache padded to 1024), with prefill seconds, decode
@@ -56,7 +71,9 @@ Phases, each of which exits non-zero on failure before the last line:
     LOGIT_REL_TOL, and the share of greedy tokens the two routes agree on;
     then the device busy share of one prefill and one decode step, with
     the attention kernels' shares;
-10. one JSON line listing each ported kernel, then the result line.
+11. one JSON line listing each ported kernel (the dense kernel's launches
+    summed over the dense main path and phase 8's kernel paths), then the
+    result line.
 
 It exits 2 without printing a result when no CUDA card is present or when
 the port's sources are not beside it.
@@ -64,6 +81,7 @@ the port's sources are not beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -92,6 +110,33 @@ SERVE_PROMPT = 512
 SERVE_GEN = 32
 SERVE_S_MAX = 1024
 PEAK_BF16_OPS = 989e12  # H100 SXM tensor cores, dense
+# the policy comparison at the benchmarks' own settings (benchmarks/
+# common.py): the 40-app suite with the last 12 held out of the offline fit
+# and onboarded online, the benchmark-grade NCF config, a budget sweep
+# across the donor pool
+N_HELDOUT = 12
+NCF_TRAIN_STEPS = 2000
+NCF_ONLINE_STEPS = 400
+ACC_BOUND = 0.90  # held-out prediction accuracy (tests/test_ncf.py)
+POOL_FRACTIONS = (0.25, 0.5, 0.75, 1.0)
+# the card's fit against the host's on one injected init and index stream,
+# as the largest |parameter difference|: cuBLAS and the host's BLAS sum in
+# other orders (the JAX package and the port on one host stay below 4e-7
+# after 500 steps)
+NCF_HOST_STEPS = 500
+NCF_HOST_TOL = 1e-5
+# the Oracle's exhaustive search against its sparse DP (<= 10 receivers)
+ORACLE_BRUTE_N = 8
+ORACLE_BRUTE_BUDGET = 300.0
+# the online loop at benchmarks/online_adaptation.py's own settings: the
+# first held-out C/G/B app of the mixed group arrives cold at round 2 on a
+# 30-node cluster (seed 11) of the 28 known apps, 16 rounds of budgets
+# 700 + 350 * ((3 r) % 5) W, the predictor's default config
+ONLINE_NODES = 30
+ONLINE_SEED = 11
+N_ONLINE_ROUNDS = 16
+ONLINE_ARRIVAL = 2
+NCF_PROFILE_STEPS = 50  # the profiled fit
 # serving kernels against their plain versions, elementwise rtol = atol =
 # tol (tests/test_kernels.py's): float32 sums in another order (~1e-6);
 # bf16 may round the float32 result to the neighbouring value (2^-8)
@@ -779,6 +824,343 @@ def fused_busy_share_phase(dev, fresh_sim) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The policy comparison: NCF, the baselines, the Oracle, the online loop
+# ---------------------------------------------------------------------------
+
+
+def _leaves_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    from repro_torch.train import optimizer as opt
+
+    la, lb = opt.tree_leaves(a), opt.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _accuracy(system, pred_surface, true_surface) -> float:
+    """Mean per-cell prediction accuracy of the speedup over the initial
+    caps (tests/test_ncf.py's measure)."""
+    import numpy as np
+
+    from repro_torch.core import metrics
+
+    base = (system.init_cpu, system.init_gpu)
+    cc, gg = np.meshgrid(system.grid.cpu_levels, system.grid.gpu_levels, indexing="ij")
+    p_true = true_surface.runtime(*base) / true_surface.runtime(cc, gg)
+    p_pred = pred_surface.runtime(*base) / pred_surface.runtime(cc, gg)
+    return float(np.mean(metrics.prediction_accuracy(p_true.ravel(), p_pred.ravel())))
+
+
+def ncf_phase(dev, apps, surfs, cfg, host_steps: int):
+    """The NCF part of phase 8: offline fit, a second fit from the same seed
+    (bitwise), the card's fit against the host's on one injected stream,
+    onboarding, and the held-out apps' accuracy.  Returns the allocator."""
+    import torch
+
+    from repro_torch.core import ncf, types
+    from repro_torch.core.allocator import EcoShiftAllocator
+    from repro_torch.train import optimizer as opt
+
+    system = types.SYSTEM_2
+    train_apps, heldout = apps[: len(apps) - N_HELDOUT], apps[len(apps) - N_HELDOUT :]
+    hist = {a.name: surfs[a.name] for a in train_apps}
+
+    def fit(device, c=cfg, **kw):
+        t0 = time.perf_counter()
+        alloc = EcoShiftAllocator.train_offline(system, hist, c, device=device, **kw)
+        _sync(alloc.predictor.device)
+        return alloc, time.perf_counter() - t0
+
+    alloc, fit_s = fit(dev)
+    again, fit2_s = fit(dev)
+    check(_leaves_equal(alloc.predictor.params, again.predictor.params),
+          "two card fits from one seed differ")
+    n_obs = len(hist) * len(system.grid.pairs())
+    short = dataclasses.replace(cfg, train_steps=host_steps)
+    init = ncf._init_params(torch.Generator().manual_seed(SEED), len(hist),
+                            len(system.grid.pairs()), short)
+    idx = torch.randint(0, n_obs, (host_steps, short.batch_size),
+                        generator=torch.Generator().manual_seed(SEED + 1))
+    card, card_s = fit(dev, short, init_params=init, indices=idx)
+    host, host_s = fit("cpu", short, init_params=init, indices=idx)
+    err = max(
+        float((x.cpu() - y).abs().max())
+        for x, y in zip(opt.tree_leaves(card.predictor.params),
+                        opt.tree_leaves(host.predictor.params))
+    )
+    print(
+        f"ncf fit: {len(hist)} apps x {len(system.grid.pairs())} cells, "
+        f"{cfg.train_steps} steps of {cfg.batch_size}, embed {cfg.embed_dim}, "
+        f"mlp {list(cfg.mlp_hidden)}: fit_s={fit_s:.3f} ({fit_s / cfg.train_steps * 1e3:.3f} "
+        f"ms a step) second fit_s={fit2_s:.3f} bitwise equal; card vs host at "
+        f"{host_steps} steps on one injected stream: max_abs_err={err:.3g} "
+        f"(tol {NCF_HOST_TOL}) card_s={card_s:.3f} host_s={host_s:.3f}"
+    )
+    check(err <= NCF_HOST_TOL, "the card's fit is far from the host's")
+    ncf_profile(dev, hist, dataclasses.replace(cfg, train_steps=NCF_PROFILE_STEPS))
+
+    t0 = time.perf_counter()
+    for a in train_apps:
+        alloc.onboard_known(a.name)
+    for i, a in enumerate(heldout):
+        alloc.onboard(a.name, surfs[a.name], seed=i)
+    onboard_s = time.perf_counter() - t0
+    accs = [_accuracy(system, alloc.predicted[a.name], surfs[a.name]) for a in heldout]
+    acc = sum(accs) / len(accs)
+    print(
+        f"ncf onboarding: {len(heldout)} held-out apps x {cfg.online_steps} online "
+        f"steps + {len(train_apps)} known: onboard_s={onboard_s:.3f}; held-out "
+        f"accuracy mean={acc:.4f} min={min(accs):.4f} (bound > {ACC_BOUND})"
+    )
+    check(acc > ACC_BOUND, "held-out prediction accuracy below the bound")
+    return alloc, [a.name for a in heldout]
+
+
+def ncf_profile(dev, hist, cfg) -> None:
+    """Where a fit step's time goes: the device busy share of a short fit
+    (torch.profiler), its device events and dispatched operations a step,
+    and the top device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import types
+    from repro_torch.core.allocator import EcoShiftAllocator
+
+    def fit():
+        EcoShiftAllocator.train_offline(types.SYSTEM_2, hist, cfg, device=dev)
+        _sync(dev)
+
+    fit()  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        wall = time.perf_counter() - t0
+    with _CountOps() as ops_count:
+        fit()
+    by_kernel: dict[str, float] = {}
+    n_device = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_device += 1
+    busy = sum(by_kernel.values()) / 1e6
+    steps = cfg.train_steps
+    share = f"{busy / wall:.4f}" if busy else "not measured"
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
+    print(
+        f"profiled ncf fit ({steps} steps): wall_s={wall:.4f} ({wall / steps * 1e3:.3f} ms "
+        f"a step) device_busy_s={busy:.5f} busy_share={share} device_events_a_step="
+        f"{n_device / steps:.1f} operations_a_step={ops_count.n / steps:.1f} "
+        "top_device_us_and_share="
+        + json.dumps({k[:60]: [round(v, 1), round(v / 1e6 / wall, 4)] for k, v in top})
+        + " top_host_self_us_a_step="
+        + json.dumps({a.key[:50]: round(a.self_cpu_time_total / steps, 1) for a in host})
+    )
+
+
+def _refresh_log(pred) -> list:
+    """Wrap ``pred.refresh`` to log (seconds, apps refit, surfaces swapped)
+    for every call; the engine calls it once a round."""
+    log = []
+    inner = pred.refresh
+
+    def refresh():
+        n0 = pred.n_refits
+        t0 = time.perf_counter()
+        changed = inner()
+        _sync(pred.ncf.device)
+        log.append((time.perf_counter() - t0, pred.n_refits - n0, len(changed)))
+        return changed
+
+    pred.refresh = refresh
+    return log
+
+
+def policy_comparison_phase(dev, apps, surfs, alloc, unseen, n_nodes: int) -> int:
+    """Phase 8's policy runs; returns the dense kernel's launches on its
+    two kernel paths (EcoShift on predicted surfaces and the online loop)."""
+    from repro_torch.cluster import (
+        ClusterSim,
+        OnlinePredictor,
+        OnlinePredictorConfig,
+        Scenario,
+        make_controller,
+    )
+    from repro_torch.core import policies, surfaces, types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_2
+    mixed = surfaces.workload_group(apps, "mixed")
+
+    def fresh(cluster_apps):
+        return ClusterSim.build(system, cluster_apps, surfs, n_nodes=n_nodes,
+                                seed=SEED, device=dev)
+
+    _, recv, pool = fresh(mixed).partition()
+    budgets = tuple(pool * f for f in POOL_FRACTIONS)
+    scen = Scenario(n_rounds=len(budgets), budget=budgets)
+    print(f"policy comparison: {n_nodes} nodes, {len(recv)} receivers, pool {pool!r} W, "
+          f"budgets {[round(b, 3) for b in budgets]}")
+
+    def online_ctrl(solver, seed_surfaces, **pred_cfg):
+        pred = OnlinePredictor(alloc.predictor, OnlinePredictorConfig(**pred_cfg))
+        pred.seed_surfaces(seed_surfaces)
+        return make_controller("ecoshift_online", system, predictor=pred,
+                               solver=solver, device=dev)
+
+    launches = 0
+    results = {}
+    for name in ("uniform", "dps", "mixed_adaptive", "ecoshift", "oracle",
+                 "ecoshift_online"):
+        sim = fresh(mixed)
+        seen = None
+        if name == "ecoshift":
+            ctrl = make_controller("ecoshift", system, solver="pallas", device=dev)
+            seen = {n.app.name: alloc.predicted[n.base_app] for n in sim.nodes}
+        elif name == "ecoshift_online":
+            ctrl = online_ctrl("pallas", alloc.predicted)
+        else:
+            ctrl = make_controller(name, system, device=dev)
+        mckp_dp.reset_launches()
+        t0 = time.perf_counter()
+        res = sim.run(scen, ctrl, policy_surfaces=seen)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        if name.startswith("ecoshift"):
+            launches += mckp_dp.launches["maxplus_conv_batched"]
+            check(mckp_dp.launches["maxplus_conv_batched"] == _stages(res),
+                  f"{name}: dense kernel launches != DP stages")
+        results[name] = res
+        for rec in res.records:
+            r = rec.result
+            check(r.allocation.spent <= r.budget + 1e-9,
+                  f"{name} round {rec.round} overspends")
+            check(all(abs(x) < 1.0 for x in r.improvements.values()),
+                  f"{name} round {rec.round}: bad improvement")
+        refits = f" refits={ctrl.predictor.n_refits}" if name == "ecoshift_online" else ""
+        print(
+            f"policy {name}: wall_s={wall:.4f}{refits} launches={dict(mckp_dp.launches)} rounds "
+            + json.dumps([
+                {"budget": rec.result.budget, "spent": rec.result.allocation.spent,
+                 "avg_improvement": rec.result.avg_improvement,
+                 "jain": rec.result.jain_index}
+                for rec in res.records
+            ])
+        )
+    orc = results["oracle"].improvement_trace
+    for name, res in results.items():
+        gap = orc - res.improvement_trace
+        print(f"policy {name}: mean avg_improvement={float(res.improvement_trace.mean())!r} "
+              f"oracle_gap_pp mean={float(gap.mean()) * 100:.4f} "
+              f"max={float(gap.max()) * 100:.4f}")
+
+    # the Oracle's brute force against its sparse DP at <= 10 receivers
+    sim = fresh(mixed)
+    few = sim.partition()[1][:ORACLE_BRUTE_N]
+    fapps = [n.app for n in few]
+    base = {n.app.name: n.caps for n in few}
+    true = {n.app.name: sim._surface(n) for n in few}
+    t0 = time.perf_counter()
+    brute = policies.oracle(fapps, base, ORACLE_BRUTE_BUDGET, system, true, exhaustive=True)
+    brute_s = time.perf_counter() - t0
+    dp = policies.oracle(fapps, base, ORACLE_BRUTE_BUDGET, system, true, exhaustive=False)
+    print(f"oracle brute force: {len(few)} receivers, budget {ORACLE_BRUTE_BUDGET} W, "
+          f"brute_s={brute_s:.4f} spent={brute.spent!r} "
+          f"avg_improvement={brute.predicted_improvement!r}")
+    check(
+        dict(brute.caps) == dict(dp.caps) and brute.spent == dp.spent
+        and brute.predicted_improvement == dp.predicted_improvement,
+        "the Oracle's brute force differs from its sparse DP",
+    )
+
+    return launches
+
+
+def online_loop_phase(dev, apps, surfs, alloc, unseen) -> int:
+    """Phase 8's online loop on the kernel: ``ecoshift_online`` with a cold
+    held-out arrival under ``pallas`` and ``jax`` (bitwise), the cold app
+    fit from its own telemetry, the Oracle's replay for its gap.  Returns
+    the dense kernel's launches."""
+    import numpy as np
+
+    from repro_torch.cluster import (
+        ClusterSim,
+        OnlinePredictor,
+        OnlinePredictorConfig,
+        Scenario,
+        make_controller,
+    )
+    from repro_torch.core import surfaces, types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_2
+    mixed = surfaces.workload_group(apps, "mixed")
+    known = [a for a in mixed if a.name not in unseen]
+    cold = next(a for a in mixed if a.name in unseen and a.sclass in ("C", "G", "B"))
+    budgets = tuple(700.0 + 350.0 * ((3 * r) % 5) for r in range(N_ONLINE_ROUNDS))
+    scen = Scenario(n_rounds=N_ONLINE_ROUNDS, budget=budgets).with_arrival(
+        ONLINE_ARRIVAL, cold)
+    inst = f"{cold.name}#n{ONLINE_NODES}"
+
+    def fresh():
+        return ClusterSim.build(system, known, surfs, n_nodes=ONLINE_NODES,
+                                seed=ONLINE_SEED, device=dev)
+
+    launches = 0
+    runs = {}
+    for solver in ("pallas", "jax"):
+        pred = OnlinePredictor(alloc.predictor, OnlinePredictorConfig())
+        pred.seed_surfaces({n: s for n, s in alloc.predicted.items() if n != cold.name})
+        ctrl = make_controller("ecoshift_online", system, predictor=pred,
+                               solver=solver, device=dev)
+        log = _refresh_log(pred)
+        sim = fresh()
+        mckp_dp.reset_launches()
+        t0 = time.perf_counter()
+        res = sim.run(scen, ctrl)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        if solver == "pallas":
+            n = mckp_dp.launches["maxplus_conv_batched"]
+            check(n == _stages(res) and n > 0,
+                  "online loop: dense kernel launches != DP stages")
+            launches += n
+        runs[solver] = (res, log, pred)
+        print(f"online loop {solver}: {ONLINE_NODES} nodes of {len(known)} known apps, "
+              f"{N_ONLINE_ROUNDS} rounds, cold arrival {cold.name} at round "
+              f"{ONLINE_ARRIVAL}, wall_s={wall:.4f} launches={dict(mckp_dp.launches)} "
+              f"refits={pred.n_refits}")
+    check(_records_equal(runs["pallas"][0], runs["jax"][0]),
+          "online loop: pallas and jax records differ")
+    res, log, pred = runs["pallas"]
+    oracle = fresh().run(scen, "oracle")
+    gap = oracle.improvements_of(inst) - res.improvements_of(inst)
+    for rec, (sec, refits, swaps), g in zip(res.records, log, gap):
+        r = rec.result
+        check(r.allocation.spent <= r.budget + 1e-9, f"online round {rec.round} overspends")
+        print(
+            f"online round {rec.round}: budget={r.budget!r} spent={r.allocation.spent!r} "
+            f"avg_improvement={r.avg_improvement!r} jain={r.jain_index!r} "
+            f"cold_improvement={r.improvements.get(inst, float('nan'))!r} "
+            f"cold_oracle_gap_pp={float(g) * 100:.4f} "
+            f"refits={refits} invalidations={swaps} refresh_s={sec:.4f}"
+        )
+    post = gap[ONLINE_ARRIVAL:]
+    half = len(post) // 2
+    fitted = not pred.is_cold(cold.name)
+    print(f"online loop: {cold.name} fit from telemetry={fitted} "
+          f"prediction_error={pred.prediction_error.get(cold.name, float('nan'))!r} "
+          f"refits={pred.n_refits} rejected={pred.n_rejected} "
+          f"early_gap_pp={float(np.mean(post[:half])) * 100:.4f} "
+          f"late_gap_pp={float(np.mean(post[half:])) * 100:.4f}")
+    check(fitted, f"online loop: {cold.name} was never fit from its telemetry")
+    check(pred.n_refits > 0, "online loop: no refit")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The serving path: granite-3-2b prefill + greedy decode
 # ---------------------------------------------------------------------------
 
@@ -1229,7 +1611,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.cluster import ClusterSim, Scenario
-    from repro_torch.core import surfaces, types
+    from repro_torch.core import ncf, surfaces, types
     from repro_torch.kernels import mckp_dp
 
     dev = torch.device("cuda")
@@ -1287,6 +1669,13 @@ def main() -> int:
     )
     launches["maxplus_stages_batched"] = fused_main_path_phase(dev, fresh_fused_sim, scen_f)
     fused_busy_share_phase(dev, fresh_fused_sim)
+
+    ncf_cfg = ncf.NCFConfig(train_steps=NCF_TRAIN_STEPS, online_steps=NCF_ONLINE_STEPS)
+    alloc, unseen = ncf_phase(dev, apps, surfs, ncf_cfg, NCF_HOST_STEPS)
+    launches["maxplus_conv_batched"] += policy_comparison_phase(
+        dev, apps, surfs, alloc, unseen, N_NODES
+    )
+    launches["maxplus_conv_batched"] += online_loop_phase(dev, apps, surfs, alloc, unseen)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     stats.update(serving_kernel_phase(dev))

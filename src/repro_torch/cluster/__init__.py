@@ -2,7 +2,7 @@
 
  * ``budget``     — budget/price/carbon providers;
  * ``scenario``   — declarative event timelines;
- * ``predictor``  — round telemetry records and batches;
+ * ``predictor``  — round telemetry and the online NCF predictor;
  * ``controller`` — stateful controllers carrying warm option tables;
  * ``sim``        — the time-stepped multi-round engine.
 """
@@ -21,6 +21,8 @@ from repro_torch.cluster.scenario import (  # noqa: F401
     StragglerOnset,
 )
 from repro_torch.cluster.predictor import (  # noqa: F401
+    OnlinePredictor,
+    OnlinePredictorConfig,
     TelemetryBatch,
     TelemetryRecord,
 )

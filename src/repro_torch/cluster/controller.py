@@ -1,6 +1,19 @@
 """Stateful policy controllers for the multi-round cluster engine.
 
-The EcoShift controller: it caches per-receiver and per-behaviour-class
+One controller per policy:
+
+ * ``uniform`` / ``dps`` / ``mixed_adaptive`` — stateless wrappers of the
+   pure heuristic policies;
+ * ``oracle`` — the exact optimum on true surfaces (``sees_truth``): brute
+   force at <= 10 receivers and the sparse DP beyond, on warm option
+   tables;
+ * ``ecoshift_online`` — EcoShift with an
+   :class:`~repro_torch.cluster.predictor.OnlinePredictor` as its surface
+   source: it serves its own surfaces (the engine hands it none), ingests
+   each round's telemetry and refits on the predictor's device;
+ * ``ecoshift`` — described below.
+
+The EcoShift controller caches per-receiver and per-behaviour-class
 ``OptionTable``s across rounds (tables are built to the grid's headroom
 ceiling, so they are budget-independent and survive a changing pool) and
 solves each round with ``solver``:
@@ -10,9 +23,9 @@ solves each round with ``solver``:
    grouping follows the batch deltas, the solve reuses content-keyed
    curve/pick/plan caches, and an unchanged round returns its cached
    ``Allocation``.  With ``fused=True`` the incremental round runs on the
-   device (``mckp.solve_grouped_fused``: resident option banks, one
-   sparse-option stage kernel launch per padded stage) and routes to the
-   host only for the reference's fallback reasons, which
+   device (``mckp.solve_grouped_fused``: resident option banks, all
+   stages of the round in one sparse-option stage kernel launch) and
+   routes to the host only for the reference's fallback reasons, which
    ``last_solver``/``last_fallback_reason``/``fused_stats()`` report;
  * ``"pallas"`` — the dense DP with every (max,+) stage on the hand-written
    CUDA kernel (its plain PyTorch version for a CPU ``device``);
@@ -94,9 +107,37 @@ class Controller:
         raise NotImplementedError(FAULTS_NOT_PORTED)
 
 
+class _StatelessController(Controller):
+    """Wraps a pure policy function; nothing carries across rounds.
+    ``device`` is accepted so every controller builds alike; these
+    policies run on the host."""
+
+    def __init__(self, system: SystemSpec, *, device=None):
+        super().__init__(system)
+
+    def allocate(self, receivers, baselines, budget, surfaces):
+        fn = policies_mod.POLICIES[self.policy]
+        return fn(receivers, baselines, budget, self.system, surfaces)
+
+
+@policies_mod.register_controller("uniform")
+class UniformController(_StatelessController):
+    policy = "uniform"
+
+
+@policies_mod.register_controller("dps")
+class DPSController(_StatelessController):
+    policy = "dps"
+
+
+@policies_mod.register_controller("mixed_adaptive")
+class MixedAdaptiveController(_StatelessController):
+    policy = "mixed_adaptive"
+
+
 @dataclasses.dataclass
 class ControllerConfig:
-    """Construction config of the EcoShift controller.
+    """Construction config of the EcoShift-family and Oracle controllers.
 
     The defaults are the reference's.  ``horizon > 1`` selects receding-
     horizon planning, which is not ported yet and raises.  ``device`` is
@@ -112,6 +153,11 @@ class ControllerConfig:
     incremental: bool = True
     #: device-resident fused rounds (incremental sparse path only)
     fused: bool = False
+    #: repro_torch.cluster.predictor.OnlinePredictor (required by the
+    #: online controller)
+    predictor: object | None = None
+    #: Oracle brute-force toggle (None = auto, <= 10 receivers)
+    exhaustive: bool | None = None
     #: receding-horizon plan length in rounds (1 = myopic)
     horizon: int = 1
     device: str | torch.device | None = None
@@ -121,6 +167,17 @@ class ControllerConfig:
         beats the config field)."""
         changes = {k: v for k, v in overrides.items() if v is not None}
         return dataclasses.replace(self, **changes) if changes else self
+
+
+def _served_replace(batch: ReceiverBatch, served) -> ReceiverBatch:
+    """Swap in predictor-served surfaces and strip the delta sequence.
+
+    Served surfaces move on telemetry, outside the engine's delta bound,
+    so the batch must not claim delta continuity (seq=0 routes grouping
+    down the from-scratch path)."""
+    return dataclasses.replace(
+        batch, surfaces=served, seq=0, prev_seq=None, delta=None, removed=()
+    )
 
 
 class _ClassRec:
@@ -320,6 +377,10 @@ class _OptionCachingController(Controller):
             for n in names:
                 self._options.pop(n, None)
 
+    @property
+    def cached_tables(self) -> int:
+        return len(self._options) + len(self._group_tables)
+
     def _options_for(
         self,
         receivers: Sequence[AppSpec],
@@ -352,6 +413,15 @@ class _OptionCachingController(Controller):
         self._group_tables[key] = (surf, table)
         return table
 
+    def _grouped_options_for(
+        self, batch: ReceiverBatch
+    ) -> list[mckp.GroupedOptions]:
+        """Collapse a receiver batch into behaviour-class groups (one warm
+        option table per (surface identity, baseline))."""
+        return mckp.collapse_receivers(
+            batch.names, batch.surfaces, batch.baselines, self._group_table
+        )
+
 
 @policies_mod.register_controller("ecoshift")
 class EcoShiftController(_OptionCachingController):
@@ -374,8 +444,8 @@ class EcoShiftController(_OptionCachingController):
     ):
         super().__init__(system)
         cfg = (config if config is not None else ControllerConfig()).merged(
-            solver=solver, unit=unit, grouped=grouped, incremental=incremental,
-            fused=fused, horizon=horizon, device=device,
+            solver=solver, unit=unit, grouped=grouped,
+            incremental=incremental, fused=fused, horizon=horizon, device=device,
         )
         if cfg.solver not in ("sparse", "dense", "jax", "pallas"):
             raise ValueError(f"unknown solver {cfg.solver!r}")
@@ -495,9 +565,7 @@ class EcoShiftController(_OptionCachingController):
                 self.last_fallback_reason = ""
                 return hit
         else:
-            groups = mckp.collapse_receivers(
-                batch.names, batch.surfaces, batch.baselines, self._group_table
-            )
+            groups = self._grouped_options_for(batch)
             key = None
         sol = None
         self.last_device_s = 0.0
@@ -567,6 +635,122 @@ class EcoShiftController(_OptionCachingController):
             )
             for budget, sol in zip(budgets, sols)
         ]
+
+
+@policies_mod.register_controller("ecoshift_online", pure=False)
+class EcoShiftOnlineController(EcoShiftController):
+    """EcoShift with a telemetry-driven online predictor as surface source.
+
+    Ignores the ``surfaces`` the engine passes: every receiver's surface
+    comes from the attached
+    :class:`~repro_torch.cluster.predictor.OnlinePredictor` (the population
+    prior for cold-start apps).  After each measured round the engine feeds
+    the telemetry back via :meth:`ingest_telemetry` and the predictor
+    refreshes the apps whose telemetry warrants it.  Invalidation is
+    implicit: option tables are keyed by surface identity, and the
+    predictor swaps a surface object only on tolerance-exceeding moves.
+    Its batches carry ``seq=0`` (:func:`_served_replace`), so every round
+    solves from scratch on the host solvers or, with ``solver="pallas"``,
+    on the dense (max,+) kernel.
+    """
+
+    policy = "ecoshift_online"
+    #: the engine leaves ReceiverBatch.surfaces unfilled: every surface
+    #: comes from the predictor, and ground truth must not transit here
+    serves_own_surfaces = True
+
+    def __init__(
+        self,
+        system: SystemSpec,
+        *,
+        predictor=None,
+        config: ControllerConfig | None = None,
+        solver: str | None = None,
+        unit: float | None = None,
+        device: str | torch.device | None = None,
+    ):
+        cfg = (config if config is not None else ControllerConfig()).merged(
+            predictor=predictor, solver=solver, unit=unit, device=device
+        )
+        if cfg.predictor is None:
+            raise ValueError("ecoshift_online needs a predictor")
+        super().__init__(system, config=cfg)
+        #: repro_torch.cluster.predictor.OnlinePredictor (required)
+        self.predictor = cfg.predictor
+
+    def allocate(self, receivers, baselines, budget, surfaces=None):
+        seen = {
+            a.name: self.predictor.surface_for(a.name, a.surface_id)
+            for a in receivers
+        }
+        return super().allocate(receivers, baselines, budget, seen)
+
+    def allocate_grouped(self, batch: ReceiverBatch, budget: float):
+        served = [
+            self.predictor.surface_for(name, sid)
+            for name, sid in zip(batch.names, batch.surface_ids)
+        ]
+        return super().allocate_grouped(_served_replace(batch, served), budget)
+
+    def ingest_telemetry(self, records) -> None:
+        self.predictor.observe(records)
+        self.predictor.refresh()
+
+
+@policies_mod.register_controller("oracle")
+class OracleController(_OptionCachingController):
+    """Exhaustive/DP optimum on true surfaces (``sees_truth``); solves on
+    the host (``device`` is accepted so every controller builds alike)."""
+
+    policy = "oracle"
+    sees_truth = True
+    supports_grouped = True
+
+    def __init__(
+        self,
+        system: SystemSpec,
+        *,
+        exhaustive: bool | None = None,
+        config: ControllerConfig | None = None,
+        device=None,
+    ):
+        super().__init__(system)
+        cfg = (config if config is not None else ControllerConfig()).merged(
+            exhaustive=exhaustive
+        )
+        self.config = cfg
+        #: None = auto (brute force iff <= 10 receivers)
+        self.exhaustive = cfg.exhaustive
+
+    def _brute(self, n: int) -> bool:
+        return n <= 10 if self.exhaustive is None else self.exhaustive
+
+    def allocate(self, receivers, baselines, budget, surfaces):
+        options = self._options_for(receivers, baselines, surfaces)
+        sol = (
+            mckp.brute_force(options, budget)
+            if self._brute(len(receivers))
+            else mckp.solve_sparse(options, budget)
+        )
+        return policies_mod.allocation_from_solution(
+            sol, baselines, budget, self.system.grid
+        )
+
+    def allocate_grouped(self, batch: ReceiverBatch, budget: float) -> Allocation:
+        # The reference first re-solves around NACK-pinned receivers; the
+        # port has no actuation reports yet, so no pins (ROADMAP.md, queue
+        # 1, item 5).
+        groups = self._grouped_options_for(batch)
+        sol = (
+            mckp.brute_force(mckp.expand_groups(groups), budget)
+            if self._brute(len(batch))
+            else mckp.solve_sparse_grouped(
+                groups, budget, curve_cache=self._agg_curves
+            )
+        )
+        return policies_mod.allocation_from_solution(
+            sol, batch.baselines_map(), budget, self.system.grid
+        )
 
 
 def make_controller(policy: str, system: SystemSpec, **kwargs) -> Controller:

@@ -6,8 +6,12 @@ a stateful :class:`~repro_torch.cluster.controller.Controller`:
  1. apply this round's events (failures, stragglers, arrivals, phase
     changes) and invalidate the controller's per-receiver warm state;
  2. partition donors/receivers, derive (or read) the reclaimed budget;
- 3. the controller allocates; the engine measures true improvements and
-    emits them as a :class:`~repro_torch.cluster.predictor.TelemetryBatch`.
+ 3. the controller allocates (a controller that serves its own surfaces,
+    ``ecoshift_online``, gets batches with no surface filled in: ground
+    truth never reaches it);
+ 4. the engine measures true improvements, emits them as a
+    :class:`~repro_torch.cluster.predictor.TelemetryBatch` and feeds them
+    back through ``Controller.ingest_telemetry``.
 
 State is columnar (:class:`NodeTable`), and measurement is vectorized with
 the same RNG stream as ``repro.cluster.sim``, so every record is bitwise
@@ -342,6 +346,11 @@ class SimResult:
     def improvement_trace(self) -> np.ndarray:
         return np.array([r.avg_improvement for r in self.records])
 
+    def improvements_of(self, name: str) -> np.ndarray:
+        """Per-round improvement of one instance (NaN when not a receiver)."""
+        return np.array(
+            [r.result.improvements.get(name, np.nan) for r in self.records]
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +399,7 @@ class ClusterSim:
         #: memoized (base surface, slowdown) grouping per (table, version,
         #: rows)
         self._measure_groups_cache: tuple | None = None
-        #: receiver-batch cache: (table, version, rows, batch)
+        #: receiver-batch cache: (table, mode, version, rows, batch)
         self._batch_cache: tuple | None = None
         #: telemetry emitted by the latest round
         self.last_telemetry: object = ()
@@ -651,9 +660,12 @@ class ClusterSim:
                 return False
         return True
 
-    def _patch_batch(self, c: tuple, rows: np.ndarray) -> ReceiverBatch | None:
-        """Derive this round's true-surface batch from the cached one (built
-        on the same table), or None to force a full rebuild.
+    def _patch_batch(
+        self, mode: str, c: tuple, rows: np.ndarray
+    ) -> ReceiverBatch | None:
+        """Derive this round's batch of ``mode`` (``"true"`` surfaces or
+        ``"skip"``: none) from the cached one (built on the same table), or
+        None to force a full rebuild.
 
         In order: the cached batch comes back unchanged when nothing moved
         (same version, same rows object, surfaces still identity-fresh); a
@@ -664,9 +676,9 @@ class ClusterSim:
         NodeArrival re-registering an app's ground truth).
         """
         t = self.table
-        _, c_version, c_rows, c_batch = c
+        _, _, c_version, c_rows, c_batch = c
         if c_version == t.version and c_rows is rows:
-            if self._batch_surfaces_fresh(rows, c_batch):
+            if mode != "true" or self._batch_surfaces_fresh(rows, c_batch):
                 return c_batch
             return None  # surfaces swapped underneath: rebuild
         dirty = t.dirty_since(c_version)
@@ -683,29 +695,34 @@ class ClusterSim:
         )
         pos = np.searchsorted(rows, changed)
         strings = t.strings
-        surfaces = list(c_batch.surfaces)
+        if mode == "skip":
+            surfaces: list = [None] * len(rows)
+        else:
+            surfaces = list(c_batch.surfaces)
         if len(joined) or len(left):
             # membership moved: carry surviving surfaces over by row id,
             # rebuild the positional columns
             names = [t.names[r] for r in rows]
             surface_ids = [strings[t.sid_gid[r]] for r in rows]
-            common = np.setdiff1d(rows, joined, assume_unique=True)
-            sarr = np.empty(len(rows), dtype=object)
-            old = np.array(c_batch.surfaces, dtype=object)
-            sarr[np.searchsorted(rows, common)] = old[
-                np.searchsorted(c_rows, common)
-            ]
-            surfaces = sarr.tolist()
+            if mode == "true":
+                common = np.setdiff1d(rows, joined, assume_unique=True)
+                sarr = np.empty(len(rows), dtype=object)
+                old = np.array(c_batch.surfaces, dtype=object)
+                sarr[np.searchsorted(rows, common)] = old[
+                    np.searchsorted(c_rows, common)
+                ]
+                surfaces = sarr.tolist()
         else:
             names = list(c_batch.names)
             surface_ids = list(c_batch.surface_ids)
             for p in pos:
                 surface_ids[p] = strings[t.sid_gid[rows[p]]]
-        for p in pos:
-            r = rows[p]
-            surfaces[p] = self._surface_of(
-                strings[t.base_gid[r]], float(t.slowdown[r])
-            )
+        if mode == "true":
+            for p in pos:
+                r = rows[p]
+                surfaces[p] = self._surface_of(
+                    strings[t.base_gid[r]], float(t.slowdown[r])
+                )
         batch = ReceiverBatch(
             names=names,
             surface_ids=surface_ids,
@@ -716,9 +733,9 @@ class ClusterSim:
             delta=tuple(int(p) for p in pos),
             removed=tuple(t.names[r] for r in left),
         )
-        if not self._batch_surfaces_fresh(rows, batch):
+        if mode == "true" and not self._batch_surfaces_fresh(rows, batch):
             return None
-        self._batch_cache = (t, t.version, rows, batch)
+        self._batch_cache = (t, mode, t.version, rows, batch)
         return batch
 
     def _receiver_batch(
@@ -726,29 +743,40 @@ class ClusterSim:
         rows: np.ndarray,
         policy_surfaces: Mapping[str, PowerSurface] | None,
         sees_truth: bool,
+        *,
+        skip_surfaces: bool = False,
     ) -> ReceiverBatch:
         """Columnar receiver view for group-collapsing controllers.
 
-        True-surface batches are cached per (table version, receiver
-        rows): an event-free round returns the previous batch object
-        unchanged, and a round whose dirty rows the table's log bounds
-        ships a patched copy with the changed positions in ``delta`` — the
-        contract incremental controllers key their grouping on.  Batches
-        of caller-given ``policy_surfaces`` are built fresh every round.
+        ``skip_surfaces`` leaves the surface column unfilled for
+        controllers that serve their own surfaces (``ecoshift_online``):
+        ground truth never transits their inputs.
+
+        True-surface and surface-less batches are cached per (mode, table
+        version, receiver rows): an event-free round returns the previous
+        batch object unchanged, and a round whose dirty rows the table's
+        log bounds ships a patched copy with the changed positions in
+        ``delta`` — the contract incremental controllers key their
+        grouping on.  Batches of caller-given ``policy_surfaces`` are built
+        fresh every round.
         """
         t = self.table
-        true_surfaces = policy_surfaces is None or sees_truth
+        mode = (
+            "skip" if skip_surfaces
+            else "true" if (policy_surfaces is None or sees_truth)
+            else None
+        )
         c = self._batch_cache
-        if true_surfaces and c is not None and c[0] is t:
-            batch = self._patch_batch(c, rows)
+        if mode is not None and c is not None and c[0] is t and c[1] == mode:
+            batch = self._patch_batch(mode, c, rows)
             if batch is not None:
                 return batch
         names = [t.names[r] for r in rows]
         strings = t.strings
         surfaces = [None] * len(rows)
-        if true_surfaces:
+        if mode == "true":
             self._fill_true_surfaces(rows, surfaces)
-        else:
+        elif mode is None:
             surfaces = [policy_surfaces[nm] for nm in names]
         batch = ReceiverBatch(
             names=names,
@@ -757,8 +785,8 @@ class ClusterSim:
             surfaces=surfaces,
             seq=next(_BATCH_SEQ),
         )
-        if true_surfaces:
-            self._batch_cache = (t, t.version, rows, batch)
+        if mode is not None:
+            self._batch_cache = (t, mode, t.version, rows, batch)
         return batch
 
     def run_round(
@@ -800,7 +828,10 @@ class ClusterSim:
         batch = None
         if getattr(controller, "supports_grouped", False):
             batch = self._receiver_batch(
-                recv_rows, policy_surfaces, controller.sees_truth
+                recv_rows,
+                policy_surfaces,
+                controller.sees_truth,
+                skip_surfaces=getattr(controller, "serves_own_surfaces", False),
             )
             names = batch.names
         secs["batch_s"] = _time.perf_counter() - tp

@@ -1,15 +1,27 @@
-"""Cluster-wide power-distribution policies (paper §5.1), ported part.
+"""Cluster-wide power-distribution policies (paper §5.1).
 
-This slice ports the EcoShift policy on the sparse and dense solvers, the
-shared allocation assembly and the stateful-controller registry.  The heuristic
-baselines (uniform, DPS, MixedAdaptive), the Oracle and the hierarchical
-policy come with later slices (ROADMAP.md, queue 1).
+All policies share one signature and return a validated ``Allocation``:
+
+    policy(receivers, baselines, budget, system, surfaces, ...) -> Allocation
+
+``surfaces`` carries the runtime model the policy is allowed to see:
+ * EcoShift receives *predicted* surfaces (NCF) — or true ones when the
+   prediction stage is being ablated;
+ * the Oracle receives *true* surfaces;
+ * DPS / MixedAdaptive only use telemetry-level information (natural power
+   draw), never the performance surfaces.
+
+Ported: the baselines (uniform, DPS, MixedAdaptive), EcoShift on the
+sparse and dense solvers, the Oracle, the shared allocation assembly and
+the stateful-controller registry.  The hierarchical policy comes with
+ROADMAP.md, queue 1, item 3.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import curves, mckp
@@ -40,6 +52,146 @@ def allocation_from_solution(
     )
     validate_allocation(alloc, baselines, budget, grid)
     return alloc
+
+
+def _headroom(baselines, name, system) -> tuple[float, float]:
+    c0, g0 = baselines[name]
+    grid = system.grid
+    return grid.cpu_max - c0, grid.gpu_max - g0
+
+
+# ---------------------------------------------------------------------------
+# No-distribution baseline
+# ---------------------------------------------------------------------------
+
+
+def uniform(
+    receivers: Sequence[AppSpec],
+    baselines: Mapping[str, tuple[float, float]],
+    budget: float,
+    system: SystemSpec,
+    surfaces: Mapping[str, PowerSurface] | None = None,
+) -> Allocation:
+    """Keep the initial uniform caps (the paper's measurement baseline)."""
+    caps = {a.name: baselines[a.name] for a in receivers}
+    alloc = Allocation(caps=caps, spent=0.0, predicted_improvement=0.0)
+    validate_allocation(alloc, baselines, budget, system.grid)
+    return alloc
+
+
+# ---------------------------------------------------------------------------
+# DPS — fair-share redistribution [Ding & Hoffmann, SC'23]
+# ---------------------------------------------------------------------------
+
+
+def dps(
+    receivers: Sequence[AppSpec],
+    baselines: Mapping[str, tuple[float, float]],
+    budget: float,
+    system: SystemSpec,
+    surfaces: Mapping[str, PowerSurface] | None = None,
+) -> Allocation:
+    """Fair-share: equal watts per receiver, split evenly CPU/GPU.
+
+    Water-filling handles grid-ceiling clamps: leftover watts from saturated
+    receivers/components are re-shared equally among the rest until either
+    the budget is gone or everyone is saturated.  (Table 2: two receivers,
+    200 W -> each gets 100 W split 50/50 -> caps (+50, +50).)
+    """
+    order = as_receiver_order(receivers)
+    extra = {a.name: [0.0, 0.0] for a in order}
+    head = {a.name: list(_headroom(baselines, a.name, system)) for a in order}
+    remaining = float(budget)
+    for _ in range(64):
+        active = [
+            a.name for a in order if head[a.name][0] > 1e-9 or head[a.name][1] > 1e-9
+        ]
+        if not active or remaining <= 1e-9:
+            break
+        share = remaining / len(active)
+        for name in active:
+            hc, hg = head[name]
+            want_c = want_g = share / 2.0
+            # within a receiver, a saturated component's half spills over
+            give_c = min(want_c, hc)
+            give_g = min(want_g, hg)
+            spill = (want_c - give_c) + (want_g - give_g)
+            if spill > 0:
+                extra_c = min(spill, hc - give_c)
+                give_c += extra_c
+                give_g += min(spill - extra_c, hg - give_g)
+            extra[name][0] += give_c
+            extra[name][1] += give_g
+            head[name][0] -= give_c
+            head[name][1] -= give_g
+            remaining -= give_c + give_g
+    caps = {}
+    for a in order:
+        c0, g0 = baselines[a.name]
+        caps[a.name] = (c0 + extra[a.name][0], g0 + extra[a.name][1])
+    alloc = Allocation(caps=caps, spent=budget - remaining)
+    validate_allocation(alloc, baselines, budget, system.grid)
+    return alloc
+
+
+# ---------------------------------------------------------------------------
+# MixedAdaptive — demand-proportional [Wilson et al., IPDPS'21]
+# ---------------------------------------------------------------------------
+
+
+def mixed_adaptive(
+    receivers: Sequence[AppSpec],
+    baselines: Mapping[str, tuple[float, float]],
+    budget: float,
+    system: SystemSpec,
+    surfaces: Mapping[str, PowerSurface],
+) -> Allocation:
+    """Allocate proportionally to per-component power *demand*.
+
+    Demand is inferred from telemetry: a component pinned at its cap with
+    natural draw above it demands (natural - cap) more watts.  The budget is
+    split proportionally to demand, capped at each component's demand and
+    grid headroom, with proportional water-filling of the remainder.
+    """
+    order = as_receiver_order(receivers)
+    names = [a.name for a in order]
+    demand = np.zeros((len(order), 2))
+    head = np.zeros((len(order), 2))
+    for i, a in enumerate(order):
+        c0, g0 = baselines[a.name]
+        nat_c, nat_g = surfaces[a.name].power_draw(1e9, 1e9)
+        demand[i, 0] = max(0.0, float(nat_c) - c0)
+        demand[i, 1] = max(0.0, float(nat_g) - g0)
+        head[i] = _headroom(baselines, a.name, system)
+    limit = np.minimum(demand, head)
+
+    give = np.zeros_like(demand)
+    remaining = float(budget)
+    for _ in range(64):
+        room = limit - give
+        active = (demand > 1e-9) & (room > 1e-9)
+        if remaining <= 1e-9 or not active.any():
+            break
+        w = np.where(active, demand, 0.0)
+        w_sum = w.sum()
+        if w_sum <= 0:
+            break
+        inc = np.minimum(remaining * w / w_sum, room)
+        give += inc
+        remaining -= float(inc.sum())
+
+    caps = {}
+    for i, name in enumerate(names):
+        c0, g0 = baselines[name]
+        caps[name] = (c0 + float(give[i, 0]), g0 + float(give[i, 1]))
+    alloc = Allocation(caps=caps, spent=budget - remaining)
+    validate_allocation(alloc, baselines, budget, system.grid)
+    return alloc
+
+
+# ---------------------------------------------------------------------------
+# EcoShift — predicted-surface MCKP via DP (the paper's contribution)
+# ---------------------------------------------------------------------------
 
 
 def ecoshift(
@@ -97,7 +249,49 @@ def ecoshift(
     return allocation_from_solution(sol, baselines, budget, system.grid)
 
 
-POLICIES: dict[str, PolicyFn] = {"ecoshift": ecoshift}
+# ---------------------------------------------------------------------------
+# Oracle — exhaustive search on true surfaces (§5.1, §6.3)
+# ---------------------------------------------------------------------------
+
+
+def oracle(
+    receivers: Sequence[AppSpec],
+    baselines: Mapping[str, tuple[float, float]],
+    budget: float,
+    system: SystemSpec,
+    surfaces: Mapping[str, PowerSurface],
+    *,
+    exhaustive: bool = True,
+) -> Allocation:
+    """Brute-force optimum over true surfaces.
+
+    ``exhaustive=True`` runs the DFS brute force (tractable for <= ~10 apps
+    after per-app pruning, like the paper's §6.3 study); ``False`` uses the
+    exact sparse DP — provably identical on discrete option sets, certified
+    by tests, and usable at any scale.
+    """
+    order = as_receiver_order(receivers)
+    options = [
+        curves.build_options(
+            a.name, surfaces[a.name], baselines[a.name], system.grid, budget
+        )
+        for a in order
+    ]
+    sol = (
+        mckp.brute_force(options, budget)
+        if exhaustive
+        else mckp.solve_sparse(options, budget)
+    )
+    return allocation_from_solution(sol, baselines, budget, system.grid)
+
+
+POLICIES: dict[str, PolicyFn] = {
+    "uniform": uniform,
+    "dps": dps,
+    "mixed_adaptive": mixed_adaptive,
+    "ecoshift": ecoshift,
+    "oracle": oracle,
+}
 
 
 # ---------------------------------------------------------------------------

@@ -11,17 +11,23 @@
    ``Model``'s state, and a JAX prefill/decode cache tree the port's cache
    dict: the stacked ``[n_units, ...]`` scan leaves are unstacked into one
    entry per layer, every other layout (``[d, h, k]``, ``[h, k, d]``, ...)
-   is kept, so one set of weights serves both packages.
+   is kept, so one set of weights serves both packages;
+ * a JAX ``NCFPredictor``'s parts (``params`` as numpy, ``app_index``,
+   ``cfg_feats``, ``cfg``) become the port's ``NCFPredictor`` on a device;
+   around it, the port's ``OnlinePredictor.load_state_dict`` takes a JAX
+   ``OnlinePredictor.state_dict()`` as it is.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+import dataclasses
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.cluster.sim import NodeTable
+from repro_torch.core.ncf import NCFConfig, NCFPredictor
 from repro_torch.core.curves import OptionTable
 from repro_torch.core.mckp import GroupedOptions
 
@@ -95,6 +101,39 @@ def grouped_options_from_arrays(
         )
         for name, costs, values, caps, members in groups
     ]
+
+
+# ---------------------------------------------------------------------------
+# NCF predictors
+# ---------------------------------------------------------------------------
+
+
+def ncf_predictor_from_parts(
+    system,
+    cfg,
+    params: Mapping[str, Any],
+    app_index: Mapping[str, int],
+    cfg_feats: np.ndarray,
+    *,
+    device: str | torch.device | None = None,
+    embedding_init: Callable[[str], Mapping] | None = None,
+) -> NCFPredictor:
+    """The port's :class:`NCFPredictor` on ``device`` (None = the CUDA card)
+    from a reference predictor's parts: ``params`` (the parameter tree as
+    numpy, same names), ``app_index``, ``cfg_feats`` and ``cfg`` (any object
+    with :class:`NCFConfig`'s fields, read field by field).  ``system`` is
+    the port's :class:`~repro_torch.core.types.SystemSpec`."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(NCFConfig)}
+    fields["mlp_hidden"] = tuple(fields["mlp_hidden"])
+    return NCFPredictor(
+        system=system,
+        cfg=NCFConfig(**fields),
+        params=params,
+        app_index=dict(app_index),
+        cfg_feats=np.array(cfg_feats, dtype=np.float32),
+        device=device,
+        embedding_init=embedding_init,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -380,8 +380,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 15 else 0)\n"
+        "need = {'repro_torch.core.ncf', 'repro_torch.core.allocator', 'repro_torch.core.profiler',\n"
+        "        'repro_torch.train.optimizer', 'repro_torch.cluster.predictor'}\n"
+        "missing = sorted(need - set(mods))\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 15 else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
     proc = subprocess.run(
