@@ -37,10 +37,30 @@ Phases, each of which exits non-zero on failure before the last line:
     entry never); then the device busy share of one fused round, the
     kernel's share of it and ``dispatch_s``, and the kernel timed on the
     round's resident banks;
- 8. the policy comparison at the benchmarks' settings: NCF trained on
-    the card on 28 of the 40 apps (2000 steps), a second fit from the same
-    seed bitwise equal, the card's fit against the host's on one injected
-    stream, the 12 held-out apps onboarded online and their accuracy held
+ 8. the hierarchical power-domain path at benchmarks/hier_alloc.py's
+    settings: the stage kernel at the tree kinds' combine-wave shapes
+    (float64, S = 1, masked at a cap cut; rows 1-40 by offsets 16-128 at
+    NB = 128, and the widest wave, NB = K = 4096) against its plain
+    version bitwise, with times and bounds; the deep tier (100 000
+    SYSTEM_1 nodes under a 4-level site -> row -> PDU -> chassis tree of
+    125 domains, an 8 kW budget, 5 rounds with 1 000 failures (one whole
+    chassis outside one PDU), 100 stragglers, that PDU derated below its
+    draw and 20 replacement arrivals) through ``ClusterSim.run`` under
+    ``ecoshift_hier`` with ``fused=True`` and on the host, equal in every
+    record and every round's ``last_domain_spent``, every round fused
+    with no fallback and 1 + (its 8 waves) launches of kernel 2.1, every
+    domain under its cap and every ancestor its children's sum, the
+    derating cutting the PDU's draw to within one lattice pitch of its new
+    cap, then the busy share of one profiled event round; and the 16-rack
+    tier at 10 000 nodes on the dense solver,
+    ``solver="pallas"`` (kernel 2.2, one launch a leaf-scan stage over
+    every rack) against ``"jax"``, equal, the launches equal to the
+    leaf-scan stages, every rack under its cap and the derated rack's cap
+    cutting its draw;
+ 9. the policy comparison at the benchmarks' settings: NCF trained on
+    the card on 28 of the 40 apps (2000 steps), two card fits of one
+    500-step stream bitwise equal and the card's fit against the host's on
+    that stream, the 12 held-out apps onboarded online and their accuracy held
     above ACC_BOUND; then the 256-node cluster over a four-budget sweep
     under uniform, DPS, MixedAdaptive, EcoShift on predicted surfaces (the
     dense kernel), the Oracle (sparse DP) and ``ecoshift_online``, with
@@ -52,7 +72,7 @@ Phases, each of which exits non-zero on failure before the last line:
     and on the plain version, bitwise equal, the cold app fit from its own
     telemetry, with refits, invalidations, refresh seconds and the cold
     app's gap to the Oracle a round;
- 9. the serving kernels (RMSNorm, flash attention, flash decode) against
+10. the serving kernels (RMSNorm, flash attention, flash decode) against
     their plain PyTorch versions on the card, in bf16 and float32, at the
     serving path's shapes, a sliding-window and a softcap shape, ragged
     decode lengths that include 1, a long decode cache (8192 slots) and
@@ -61,7 +81,7 @@ Phases, each of which exits non-zero on failure before the last line:
     time), each with its time, the plain version's, its bound and one
     library call's (``torch.nn.functional.rms_norm``,
     ``scaled_dot_product_attention``; the port never calls them);
-10. the serving path: granite-3-2b at its full config (40 layers, bf16
+11. the serving path: granite-3-2b at its full config (40 layers, bf16
     compute, float32 weights drawn from a seed) through
     ``ServeEngine.generate`` for 8 requests of 512 prompt tokens and 32
     greedy tokens (cache padded to 1024), with prefill seconds, decode
@@ -71,9 +91,10 @@ Phases, each of which exits non-zero on failure before the last line:
     LOGIT_REL_TOL, and the share of greedy tokens the two routes agree on;
     then the device busy share of one prefill and one decode step, with
     the attention kernels' shares;
-11. one JSON line listing each ported kernel (the dense kernel's launches
-    summed over the dense main path and phase 8's kernel paths), then the
-    result line.
+12. one JSON line listing each ported kernel (the dense kernel's launches
+    summed over the dense main path, the rack tier and phase 9's kernel
+    paths; the stage kernel's over the fused main path and the deep tier),
+    then the result line.
 
 It exits 2 without printing a result when no CUDA card is present or when
 the port's sources are not beside it.
@@ -110,6 +131,19 @@ SERVE_PROMPT = 512
 SERVE_GEN = 32
 SERVE_S_MAX = 1024
 PEAK_BF16_OPS = 989e12  # H100 SXM tensor cores, dense
+# the hierarchical path at benchmarks/hier_alloc.py's settings: its deep
+# tier (100 000 SYSTEM_1 nodes under a 4-level site -> row -> PDU ->
+# chassis tree, 125 domains) fused on the card, and
+# its 16-rack tier at 10 000 nodes on the dense solver; 8 kW budgets
+DEEP_NODES = 100_000
+DEEP_FANOUTS = (4, 5, 5)
+DEEP_LEVEL_FRACS = (0.9, 0.75, 0.6)
+DEEP_BUDGET = 8000.0
+DEEP_ROUNDS = 5
+RACK_NODES = 10_000
+RACK_COUNT = 16
+RACK_BUDGET = 8000.0
+RACK_ROUNDS = 4
 # the policy comparison at the benchmarks' own settings (benchmarks/
 # common.py): the 40-app suite with the last 12 held out of the offline fit
 # and onboarded online, the benchmark-grade NCF config, a budget sweep
@@ -824,6 +858,507 @@ def fused_busy_share_phase(dev, fresh_sim) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The hierarchical power-domain path: tree waves, the deep fused tree, the
+# dense rack tier
+# ---------------------------------------------------------------------------
+
+
+def _wave_inputs(rows: int, nb: int, k: int, seed: int, dev):
+    """One combine wave's launch inputs, built as the fused round builds
+    them (float64): left and right frontier rows [rows, nb] on a 1/4
+    lattice with -inf tails past a random support, the descending offset
+    row k - 1 .. 0 and the right rows' first k states reversed as options
+    ([1, rows, k]), and a cap cut tmax [rows] in [nb / 2, nb)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def frontier():
+        x = np.round(rng.uniform(0, 20, (rows, nb)) * 4) / 4
+        x[rng.random((rows, nb)) < 0.2] = -np.inf
+        x[:, 0] = 0.0
+        x[np.arange(nb)[None, :] > rng.integers(1, nb, rows)[:, None]] = -np.inf
+        return torch.as_tensor(x, dtype=torch.float64, device=dev)
+
+    left, right = frontier(), frontier()
+    ckb = torch.arange(k - 1, -1, -1, dtype=torch.int32, device=dev)
+    ckb = ckb[None, None, :].expand(1, rows, k).contiguous()
+    cvb = torch.flip(right[:, :k], (1,))[None].contiguous()
+    tc = torch.as_tensor(rng.integers(nb // 2, nb, rows).astype(np.int32), device=dev)
+    return left, ckb, cvb, tc
+
+
+def tree_wave_kernel_phase(dev) -> None:
+    """Kernel 2.1 at the tree kinds' combine-wave shapes: S = 1, masked at
+    the cap cut, float64, against its plain version bit for bit (values and
+    backpointers), at the 100 000-node deep tree's waves (rows x offsets,
+    NB = NBT = 128) and at the widest wave the fused tree admits
+    (NB = NBT = K = 4096)."""
+    from repro_torch.kernels import mckp_dp, ref
+
+    cases = [(r, 128, k) for r in (40, 20, 8, 1) for k in (16, 31, 76, 128)]
+    cases.append((40, 4096, 4096))
+    for i, (rows, nb, k) in enumerate(cases):
+        left, ckb, cvb, tc = _wave_inputs(rows, nb, k, SEED + 60 + i, dev)
+        mckp_dp.reset_launches()
+        out, arg = mckp_dp.maxplus_stages_batched(left, ckb, cvb, tc)
+        check(mckp_dp.launches["maxplus_stages_batched"] == 1,
+              f"tree wave R={rows} K={k}: {dict(mckp_dp.launches)}")
+        want_out, want_arg = ref.maxplus_stages_batched(left, ckb, cvb, tc)
+        check(_bits_equal(out, want_out) and _bits_equal(arg, want_arg),
+              f"stage kernel != plain version at tree wave R={rows} NB={nb} K={k}")
+        err = _max_abs_err(out, want_out)
+        t = _times(lambda: mckp_dp.maxplus_stages_batched(left, ckb, cvb, tc), iters=20)
+        plain_ms = _cuda_ms(lambda: ref.maxplus_stages_batched(left, ckb, cvb, tc),
+                            iters=3, warmup=1)
+        ops = 2.0 * rows * nb * k
+        nbytes = rows * (8 * nb + 12 * k + 4 + 12 * nb)
+        t_ops, t_bytes = ops / PEAK_F64_OPS, nbytes / PEAK_BYTES
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        resident, blocks, smem = mckp_dp.stages_plan(dev.index or 0, rows, nb, 8)
+        print(
+            f"tree wave kernel: rows={rows} nb={nb} k={k} float64 masked S=1 bitwise "
+            f"out+arg ok, max_abs_err={err} ms={t['ms']:.6f} "
+            f"device_ms={t['device_ms']:.6f} host_us={t['host_us']:.2f} "
+            f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}, 2 R NB K add-compares "
+            f"at f64 {PEAK_F64_OPS:.3g} op/s) "
+            f"roofline_share={bound_ms / t['device_ms']:.4f} resident={resident} "
+            f"blocks={blocks} smem={smem} library_ms=null"
+        )
+
+
+def _node_counts(dom, index, out) -> int:
+    i = index[dom.name]
+    if dom.children:
+        out[i] = sum(_node_counts(c, index, out) for c in dom.children)
+    else:
+        out[i] = sum(hi - lo for lo, hi in dom.nodes)
+    return out[i]
+
+
+def _deep_topology(system, apps, surfs, dev):
+    """benchmarks/hier_alloc.py's deep tier: a 4-level site -> row -> PDU ->
+    chassis tree over DEEP_NODES nodes, the root at 1e18 W and every row,
+    PDU and chassis at its committed draw plus 0.9, 0.75 or 0.6 of its
+    node-proportional share of the budget.  Returns the topology, the
+    probe sim's node table and each domain's committed draw."""
+    from repro_torch.cluster import ClusterSim, PowerDomain, PowerTopology
+
+    n = DEEP_NODES
+    probe = ClusterSim.build(
+        system, apps, surfs, n_nodes=n, seed=SEED, initial_caps=(150.0, 150.0),
+        topology=PowerTopology.uniform_tree(n, DEEP_FANOUTS, [1e15] * 4), device=dev,
+    )
+    _, committed, _ = probe.domain_headroom(0)
+    index = probe.topology.index
+    counts: dict[int, int] = {}
+    _node_counts(probe.topology.domains[0], index, counts)
+
+    def recap(dom, depth):
+        i = index[dom.name]
+        if depth == 0:
+            cap = 1e18
+        else:
+            frac = DEEP_LEVEL_FRACS[min(depth - 1, len(DEEP_LEVEL_FRACS) - 1)]
+            cap = float(committed[i]) + frac * DEEP_BUDGET * counts[i] / n
+        return PowerDomain(name=dom.name, cap=cap, nodes=dom.nodes,
+                           children=tuple(recap(c, depth + 1) for c in dom.children))
+
+    topo = PowerTopology(recap(probe.topology.domains[0], 0), n_nodes=n)
+    return topo, probe.table, committed
+
+
+def _hier_events(scen, table, topo, committed, apps, rounds: int, seed: int,
+                 whole_leaves: bool):
+    """One event kind a round from round 1 on ``table``'s cluster under
+    ``topo`` (``committed``: each domain's committed draw at round 0):
+    seeded node failures (1 % of the nodes) outside one PDU's subtree (or,
+    in a two-level tree, one rack's), filling whole leaves in a seeded
+    order when ``whole_leaves`` (a chassis outage in the deep tree), else
+    spread over those leaves at random; a x1.6 straggler on 0.1 % of the
+    nodes; that PDU derated at round 3 to its committed draw plus half the
+    headroom of its leaves; and 20 arrivals (at round 4, or with the
+    derating when the scenario is four rounds long).  The PDU keeps every
+    node, so its leaves stay at their caps and the derating cuts into what
+    they drew: its cap binds.  Each arrival replaces one failed node: the
+    same app at the same caps, placed on that node's leaf, so the draw it
+    commits is the draw the failure freed there.  Returns the scenario and
+    the derated domain's id."""
+    import numpy as np
+
+    from repro_torch.cluster import NodeArrival, StragglerOnset
+
+    t = table
+    n = len(t)
+    rng = np.random.default_rng(seed)
+    mid = [i for i, d in enumerate(topo.domains) if d.children and topo.depth[i] == 2]
+    mid = mid or list(topo.leaf_ids)
+    di = int(mid[int(rng.integers(0, len(mid)))])
+    under = np.zeros(len(topo), dtype=bool)  # the leaves in di's subtree
+    for leaf in topo.leaf_ids:
+        j = int(leaf)
+        while j >= 0 and j != di:
+            j = int(topo.parent[j])
+        under[leaf] = j == di
+    caps = topo.cap_at(0)
+    leaf_room = float(np.sum((caps - committed)[under]))
+    derated_cap = float(committed[di]) + 0.5 * leaf_room
+    if whole_leaves:  # leaf by leaf in a seeded order, then node by node
+        failed = np.concatenate([
+            rng.permutation(np.flatnonzero(t.domain_id == leaf))
+            for leaf in rng.permutation(topo.leaf_ids[~under[topo.leaf_ids]])
+        ])[: n // 100]
+    else:
+        failed = rng.choice(np.flatnonzero(~under[t.domain_id]), size=n // 100,
+                            replace=False)
+    scen = scen.with_failure(1, *failed.tolist())
+    scen = scen.with_events([
+        StragglerOnset(round=2, node_id=int(i), slowdown=1.6)
+        for i in rng.choice(n, size=max(1, n // 1000), replace=False)
+    ])
+    scen = scen.with_domain_cap(3, topo.domains[di].name, derated_cap)
+    by_name = {a.name: a for a in apps}
+    scen = scen.with_events([
+        NodeArrival(
+            round=min(4, rounds - 1), app=by_name[t.strings[t.base_gid[i]]],
+            caps=(float(t.caps[i, 0]), float(t.caps[i, 1])),
+            domain=topo.domains[int(t.domain_id[i])].name,
+        )
+        for i in rng.choice(failed, size=min(20, len(failed)), replace=False)
+    ])
+    return scen, di
+
+
+def _run_hier(sim, scen, dev, on_round=None, **kw):
+    """One scenario under a fresh ecoshift_hier controller; returns
+    (result, per-round log, controller, seconds).  The log holds each
+    round's last_solver, last_domain_spent, the fused segments and pads,
+    the receivers of the fullest leaf and the widest leaf's dense grid
+    (1 W units)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import make_controller
+    from repro_torch.core import types
+
+    from repro_torch.core import mckp
+    from repro_torch.kernels import mckp_dp
+
+    ctrl = make_controller("ecoshift_hier", types.SYSTEM_1, device=dev, **kw)
+    log = []
+    inner = ctrl.allocate_hierarchical
+
+    def allocate_hierarchical(batch, budget, domain_extra):
+        before = mckp_dp.launches["maxplus_stages_batched"]
+        alloc = inner(batch, budget, domain_extra)
+        topo = sim.topology
+        eff = np.empty(len(topo))  # mckp._domain_eff cascaded down the tree
+        for i in range(len(topo)):
+            up = budget if topo.parent[i] < 0 else eff[topo.parent[i]]
+            eff[i] = max(0.0, min(float(domain_extra[i]), up))
+        busy = np.unique(batch.domain_ids)
+        entry = {
+            "solver": ctrl.last_solver, "reason": ctrl.last_fallback_reason,
+            "domain_spent": ctrl.last_domain_spent,
+            "leaf_max": int(np.bincount(batch.domain_ids).max()) if len(batch) else 0,
+            "leaf_nb": int(np.floor(eff[busy].max() + 1e-9)) + 1 if len(batch) else 0,
+        }
+        if ctrl.last_solver == "fused":
+            fs = ctrl._fused_state
+            kind, L, _, _, nb_pad, nbt_pad, tree_sig = fs.shape
+            waves = 0
+            if kind == "tree":  # the round's static combine schedule
+                waves = len(mckp._tree_waves(*mckp._tree_ops(tree_sig, L)[:3], nb_pad, nbt_pad))
+            entry.update(shape=fs.shape[:6], pitch_w=fs.g / 1e6,
+                         segments=ctrl.fused_segments(),
+                         device_s=ctrl.last_device_s, stats=ctrl.fused_stats(), waves=waves,
+                         launches=mckp_dp.launches["maxplus_stages_batched"] - before)
+        log.append(entry)
+        if on_round is not None:
+            on_round()
+        return alloc
+
+    ctrl.allocate_hierarchical = allocate_hierarchical
+    t0 = time.perf_counter()
+    res = sim.run(scen, ctrl)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return res, log, ctrl, time.perf_counter() - t0
+
+
+def _check_domains(rec, topo, label: str) -> dict:
+    """Every domain at or under its cap + 1e-6 W and every ancestor's draw
+    its children's sum (to 1e-6 W); returns the least cap slack of each
+    level of the tree (0 = the root)."""
+    slack: dict[int, float] = {}
+    for i, dom in enumerate(topo.domains):
+        s = rec.domain_caps[dom.name] - rec.domain_draw[dom.name]
+        level = int(topo.depth[i])
+        slack[level] = min(slack.get(level, float("inf")), s)
+        if dom.children:
+            kids = sum(rec.domain_draw[c.name] for c in dom.children)
+            check(abs(rec.domain_draw[dom.name] - kids) <= 1e-6,
+                  f"{label} round {rec.round}: {dom.name} draw != its children's sum")
+    least = min(slack.values())
+    check(least >= -1e-6, f"{label} round {rec.round}: a domain over its cap by {-least} W")
+    return slack
+
+
+def _check_derating(res, topo, di: int, label: str, pitch: float | None = None) -> str:
+    """The round-3 derating binds: the derated domain's new cap lies below
+    what it drew in round 2, and its draw falls to or under that cap (and,
+    given the fused lattice ``pitch``, within one pitch of it)."""
+    name = topo.domains[di].name
+    before, at = res.records[2], res.records[3]
+    cap = at.domain_caps[name]
+    check(cap < before.domain_draw[name],
+          f"{label}: {name}'s derated cap {cap} W does not cut its round-2 draw "
+          f"{before.domain_draw[name]} W")
+    check(at.domain_draw[name] <= cap + 1e-6, f"{label}: {name} over its derated cap")
+    if pitch is not None:
+        check(cap - at.domain_draw[name] < pitch,
+              f"{label}: {name} left {cap - at.domain_draw[name]} W of its derated cap, "
+              f"a {pitch} W pitch or more")
+    return (f"derated {name}: round-2 draw {before.domain_draw[name]!r} W, round-3 cap "
+            f"{cap!r} W, round-3 draw {at.domain_draw[name]!r} W")
+
+
+def _hier_records_equal(a, b) -> bool:
+    return _records_equal(a, b) and all(
+        ra.domain_draw == rb.domain_draw and ra.domain_caps == rb.domain_caps
+        for ra, rb in zip(a.records, b.records, strict=True)
+    )
+
+
+def deep_tree_phase(dev, apps, surfs) -> int:
+    """The hierarchical main path: ClusterSim.run on the 100 000-node,
+    125-domain deep tree under ecoshift_hier with fused=True on the card,
+    against the host solver, five rounds with an event in each after the
+    first.  Returns kernel 2.1's launches on the fused run."""
+    from repro_torch.cluster import ClusterSim, Scenario
+    from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_1
+    t0 = time.perf_counter()
+    topo, table, committed = _deep_topology(system, apps, surfs, dev)
+
+    def fresh():
+        return ClusterSim.build(system, apps, surfs, n_nodes=DEEP_NODES, seed=SEED,
+                                initial_caps=(150.0, 150.0), topology=topo, device=dev)
+
+    scen, derated = _hier_events(
+        Scenario.constant(DEEP_ROUNDS, budget=DEEP_BUDGET).with_topology(topo),
+        table, topo, committed, apps, DEEP_ROUNDS, SEED, whole_leaves=True,
+    )
+
+    print(f"deep tree: {DEEP_NODES} nodes, {len(topo)} domains, "
+          f"{len(topo.leaf_ids)} leaves, fanouts {DEEP_FANOUTS}, budget {DEEP_BUDGET} W, "
+          f"{DEEP_ROUNDS} rounds, derated {topo.domains[derated].name}, "
+          f"setup_s={time.perf_counter() - t0:.2f}")
+    mckp_dp.reset_launches()
+    sim_f = fresh()
+    res_f, log_f, ctrl, wall_f = _run_hier(sim_f, scen, dev, fused=True)
+    launches = dict(mckp_dp.launches)
+    res_h, log_h, _, wall_h = _run_hier(fresh(), scen, dev)
+    check(_hier_records_equal(res_f, res_h), "deep tree: fused and host records differ")
+    stats = ctrl.fused_stats()
+    check(stats.fallbacks == 0, f"deep tree fused fallbacks: {stats}")
+    for rf, rh, ef, eh in zip(res_f.records, res_h.records, log_f, log_h):
+        check(ef["solver"] == "fused", f"deep round {rf.round} ran on {ef['solver']!r} "
+              f"({ef['reason']!r})")
+        check(ef["domain_spent"] == eh["domain_spent"],
+              f"deep round {rf.round}: last_domain_spent differs")
+        check(ef["launches"] == 1 + ef["waves"] and ef["waves"] > 0,
+              f"deep round {rf.round}: {ef['launches']} stage-kernel launches, "
+              f"not 1 leaf scan + {ef['waves']} waves")
+        slack = _check_domains(rf, topo, "deep tree")
+        alloc = rf.result.allocation
+        check(alloc.spent <= rf.result.budget + 1e-9, f"deep round {rf.round} overspends")
+        kind, L, s_pad, k_pad, nb_pad, nbt_pad = ef["shape"]
+        print(
+            f"deep round {rf.round}: receivers={len(rf.result.improvements)} "
+            f"spent={alloc.spent!r} avg_improvement={alloc.predicted_improvement!r} "
+            f"least_cap_slack_w_by_level={json.dumps(slack)} pitch_w={ef['pitch_w']!r} "
+            f"solver={ef['solver']} "
+            f"pads L={L} S={s_pad} K={k_pad} NB={nb_pad} NBT={nbt_pad} "
+            f"stage_kernel_launches={ef['launches']} (1 leaf scan + {ef['waves']} waves) "
+            f"fused allocate_s={rf.seconds['allocate_s']:.4f} "
+            f"device_s={ef['device_s']:.6f} host allocate_s={rh.seconds['allocate_s']:.4f} "
+            f"fused round_s={sum(rf.seconds.values()):.4f} "
+            f"host round_s={sum(rh.seconds.values()):.4f} segments="
+            + json.dumps({k: round(v, 6) for k, v in ef["segments"].items()})
+        )
+    check(launches["maxplus_stages_batched"] == sum(e["launches"] for e in log_f)
+          and launches["maxplus_stage_batched"] == 0
+          and launches["maxplus_conv_batched"] == launches["maxplus_conv"] == 0,
+          f"deep tree launches {launches} outside its fused rounds")
+    pitch = log_f[3]["pitch_w"]
+    print(f"deep tree: {_check_derating(res_f, topo, derated, 'deep tree', pitch)}")
+    print(f"deep tree: launches={launches} wall_s fused={wall_f:.4f} host={wall_h:.4f} "
+          f"stats={stats}")
+    _deep_busy_share(sim_f, ctrl)
+    return launches["maxplus_stages_batched"]
+
+
+def _deep_busy_share(sim, ctrl) -> None:
+    """Device busy share of one more event round of the deep tree's fused
+    run (a straggler on its warm sim and controller), from torch.profiler
+    (launches made here are outside the counted run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cluster import StragglerOnset
+
+    touched = sim.apply_events(
+        [StragglerOnset(round=DEEP_ROUNDS, node_id=7, slowdown=1.3)]
+    )
+    ctrl.invalidate(touched)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round(ctrl, budget=DEEP_BUDGET, round_index=DEEP_ROUNDS)
+        wall = time.perf_counter() - t0
+    check(ctrl.last_solver == "fused", f"profiled deep round ran on {ctrl.last_solver!r}")
+    by_kernel: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_s = sum(by_kernel.values()) / 1e6
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    secs = json.dumps({k: round(v, 6) for k, v in sim.last_round_seconds.items()})
+    segs = json.dumps({k: round(v, 6) for k, v in ctrl.fused_segments().items()})
+    if device_s:
+        print(
+            f"profiled deep event round: wall_s={wall:.4f} device_busy_s={device_s:.6f} "
+            f"busy_share={device_s / wall:.4f} "
+            f"{_kernel_share(by_kernel, 'maxplus_stages_kernel', wall)} "
+            f"round_seconds={secs} segments={segs} top_device_us_and_share="
+            + json.dumps({k[:60]: [round(v, 1), round(v / 1e6 / wall, 4)] for k, v in top})
+        )
+    else:
+        print(f"profiled deep event round: wall_s={wall:.4f} busy_share=not measured "
+              f"(the profiler recorded no device time) round_seconds={secs}")
+
+
+def _rack_topology(system, apps, surfs, dev):
+    """benchmarks/hier_alloc.py's rack tier: RACK_NODES nodes in RACK_COUNT
+    racks under an unconstrained site, each rack at its committed draw
+    plus 0.6 of its even share of the budget.  Returns the topology, the
+    probe sim's node table and each domain's committed draw."""
+    from repro_torch.cluster import ClusterSim, PowerDomain, PowerTopology
+
+    probe = ClusterSim.build(
+        system, apps, surfs, n_nodes=RACK_NODES, seed=SEED, initial_caps=(150.0, 150.0),
+        topology=PowerTopology.uniform_racks(RACK_NODES, RACK_COUNT, rack_cap=1e15),
+        device=dev,
+    )
+    _, committed, _ = probe.domain_headroom(0)
+    extra = 0.6 * RACK_BUDGET / RACK_COUNT
+    racks = tuple(
+        PowerDomain(name=probe.topology.domains[i].name, cap=float(committed[i]) + extra,
+                    nodes=probe.topology.domains[i].nodes)
+        for i in probe.topology.leaf_ids
+    )
+    topo = PowerTopology(PowerDomain(name="site", cap=1e18, children=racks))
+    return topo, probe.table, committed
+
+
+def rack_tier_phase(dev, apps, surfs) -> int:
+    """The dense hierarchical path: the 16-rack tier under ecoshift_hier
+    with solver="pallas" (kernel 2.2, one launch a leaf-scan stage over
+    every rack) against solver="jax" (its plain version on the card), four
+    rounds with an event in each after the first.  Returns kernel 2.2's
+    launches on the pallas run."""
+    from repro_torch.cluster import ClusterSim, Scenario
+    from repro_torch.core import mckp, types
+    from repro_torch.kernels import mckp_dp, ref
+
+    system = types.SYSTEM_1
+    topo, table, committed = _rack_topology(system, apps, surfs, dev)
+
+    def fresh():
+        return ClusterSim.build(system, apps, surfs, n_nodes=RACK_NODES, seed=SEED,
+                                initial_caps=(150.0, 150.0), topology=topo, device=dev)
+
+    scen, derated = _hier_events(
+        Scenario.constant(RACK_ROUNDS, budget=RACK_BUDGET).with_topology(topo),
+        table, topo, committed, apps, RACK_ROUNDS, SEED + 1, whole_leaves=False,
+    )
+
+    # the dense round's split: seconds in the batched leaf scan (on the
+    # card, to its copy back) and in the numpy frontier combine, a round
+    split = {"leaf_scan_s": 0.0, "combine_s": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[name] += time.perf_counter() - t
+        return run
+
+    scan, conv = mckp._scan_batched, mckp._conv_full
+    mckp._scan_batched, mckp._conv_full = timed("leaf_scan_s", scan), timed("combine_s", conv)
+    splits = []
+    try:
+        mckp_dp.reset_launches()
+        res_k, log_k, _, wall_k = _run_hier(fresh(), scen, dev, solver="pallas",
+                                            on_round=lambda: splits.append(dict(split)))
+        launches = dict(mckp_dp.launches)
+    finally:
+        mckp._scan_batched, mckp._conv_full = scan, conv
+    res_p, log_p, _, wall_p = _run_hier(fresh(), scen, dev, solver="jax")
+    check(_hier_records_equal(res_k, res_p), "rack tier: pallas and jax records differ")
+    stages = sum(e["leaf_max"] for e in log_k)
+    check(launches["maxplus_conv_batched"] == stages and launches["maxplus_conv"] == 0
+          and launches["maxplus_stages_batched"] == 0,
+          f"rack tier launches {launches} != {stages} leaf-scan stages")
+    print(f"rack tier: {RACK_NODES} nodes, {RACK_COUNT} racks, budget {RACK_BUDGET} W, "
+          f"{RACK_ROUNDS} rounds, {_check_derating(res_k, topo, derated, 'rack tier')}, "
+          f"launches={launches} "
+          f"leaf_scan_stages={stages} wall_s pallas={wall_k:.4f} jax={wall_p:.4f}")
+    prev = {"leaf_scan_s": 0.0, "combine_s": 0.0}
+    for rk, rp, ek, ep, sp in zip(res_k.records, res_p.records, log_k, log_p, splits):
+        ek["split"] = {k: sp[k] - prev[k] for k in sp}
+        prev = sp
+        check(ek["domain_spent"] == ep["domain_spent"],
+              f"rack round {rk.round}: last_domain_spent differs")
+        slack = _check_domains(rk, topo, "rack tier")
+        alloc = rk.result.allocation
+        print(
+            f"rack round {rk.round}: receivers={len(rk.result.improvements)} "
+            f"fullest_rack={ek['leaf_max']} spent={alloc.spent!r} "
+            f"avg_improvement={alloc.predicted_improvement!r} "
+            f"leaf_nb={ek['leaf_nb']} least_cap_slack_w_by_level={json.dumps(slack)} "
+            f"pallas allocate_s={rk.seconds['allocate_s']:.4f} "
+            f"(leaf_scan_s={ek['split']['leaf_scan_s']:.4f} "
+            f"combine_s={ek['split']['combine_s']:.4f}) "
+            f"round_s={sum(rk.seconds.values()):.4f} jax allocate_s="
+            f"{rp.seconds['allocate_s']:.4f} round_s={sum(rp.seconds.values()):.4f}"
+        )
+    # kernel 2.2 alone at the tier's leaf-scan stage shapes
+    for nb in sorted({e["leaf_nb"] for e in log_k}):
+        dp, f = _stage_inputs(RACK_COUNT, nb, SEED + 80 + nb, dev)
+        out, arg = mckp_dp.maxplus_conv_batched(dp, f)
+        want_out, want_arg = ref.maxplus_conv_batched(dp, f)
+        check(_bits_equal(out, want_out) and _bits_equal(arg, want_arg),
+              f"dense kernel != plain version at R={RACK_COUNT} NB={nb}")
+        t = _times(lambda: mckp_dp.maxplus_conv_batched(dp, f), iters=20)
+        plain_ms = _cuda_ms(lambda: ref.maxplus_conv_batched(dp, f), iters=3, warmup=1)
+        bound_ms, bound_by = _bound_ms(RACK_COUNT, nb)
+        print(
+            f"rack tier kernel: rows={RACK_COUNT} nb={nb} bitwise out+arg ok "
+            f"ms={t['ms']:.6f} device_ms={t['device_ms']:.6f} host_us={t['host_us']:.2f} "
+            f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
+            f"roofline_share={bound_ms / t['device_ms']:.4f} library_ms=null"
+        )
+    return launches["maxplus_conv_batched"]
+
+
+# ---------------------------------------------------------------------------
 # The policy comparison: NCF, the baselines, the Oracle, the online loop
 # ---------------------------------------------------------------------------
 
@@ -852,8 +1387,9 @@ def _accuracy(system, pred_surface, true_surface) -> float:
 
 
 def ncf_phase(dev, apps, surfs, cfg, host_steps: int):
-    """The NCF part of phase 8: offline fit, a second fit from the same seed
-    (bitwise), the card's fit against the host's on one injected stream,
+    """The NCF part of phase 8: offline fit, two card fits of one seeded
+    stream (bitwise, at ``host_steps``), the card's fit against the host's
+    on that stream,
     onboarding, and the held-out apps' accuracy.  Returns the allocator."""
     import torch
 
@@ -872,9 +1408,6 @@ def ncf_phase(dev, apps, surfs, cfg, host_steps: int):
         return alloc, time.perf_counter() - t0
 
     alloc, fit_s = fit(dev)
-    again, fit2_s = fit(dev)
-    check(_leaves_equal(alloc.predictor.params, again.predictor.params),
-          "two card fits from one seed differ")
     n_obs = len(hist) * len(system.grid.pairs())
     short = dataclasses.replace(cfg, train_steps=host_steps)
     init = ncf._init_params(torch.Generator().manual_seed(SEED), len(hist),
@@ -882,6 +1415,9 @@ def ncf_phase(dev, apps, surfs, cfg, host_steps: int):
     idx = torch.randint(0, n_obs, (host_steps, short.batch_size),
                         generator=torch.Generator().manual_seed(SEED + 1))
     card, card_s = fit(dev, short, init_params=init, indices=idx)
+    again, again_s = fit(dev, short, init_params=init, indices=idx)
+    check(_leaves_equal(card.predictor.params, again.predictor.params),
+          "two card fits of one stream differ")
     host, host_s = fit("cpu", short, init_params=init, indices=idx)
     err = max(
         float((x.cpu() - y).abs().max())
@@ -892,9 +1428,9 @@ def ncf_phase(dev, apps, surfs, cfg, host_steps: int):
         f"ncf fit: {len(hist)} apps x {len(system.grid.pairs())} cells, "
         f"{cfg.train_steps} steps of {cfg.batch_size}, embed {cfg.embed_dim}, "
         f"mlp {list(cfg.mlp_hidden)}: fit_s={fit_s:.3f} ({fit_s / cfg.train_steps * 1e3:.3f} "
-        f"ms a step) second fit_s={fit2_s:.3f} bitwise equal; card vs host at "
-        f"{host_steps} steps on one injected stream: max_abs_err={err:.3g} "
-        f"(tol {NCF_HOST_TOL}) card_s={card_s:.3f} host_s={host_s:.3f}"
+        f"ms a step); at {host_steps} steps on one injected stream: a second card "
+        f"fit bitwise equal, card vs host max_abs_err={err:.3g} (tol {NCF_HOST_TOL}) "
+        f"card_s={card_s:.3f} again_s={again_s:.3f} host_s={host_s:.3f}"
     )
     check(err <= NCF_HOST_TOL, "the card's fit is far from the host's")
     ncf_profile(dev, hist, dataclasses.replace(cfg, train_steps=NCF_PROFILE_STEPS))
@@ -1615,6 +2151,11 @@ def main() -> int:
     from repro_torch.kernels import mckp_dp
 
     dev = torch.device("cuda")
+    marks = [("start", time.perf_counter())]
+
+    def lap(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1631,6 +2172,7 @@ def main() -> int:
     for name, log in logs.items():
         for line in _ptxas_summary(log):
             print(f"ptxas {name}: {line}")
+    lap("build")
 
     apps, surfs = surfaces.build_paper_suite(types.SYSTEM_2)
 
@@ -1643,17 +2185,22 @@ def main() -> int:
     nb_main = int(pool) + 1
     print(f"cluster: {N_NODES} nodes, {len(recv)} receivers, pool {pool!r} W, NB {nb_main}")
     stats = kernel_phase(dev, nb_main)
+    lap("dense_kernel")
 
     scen = (
         Scenario.constant(N_ROUNDS)
         .with_failure(1, recv[0].node_id)
         .with_straggler(2, recv[1].node_id, 1.8)
     )
-    launches = {"maxplus_conv_batched": main_path_phase(dev, fresh_sim, scen)}
+    conv_main = main_path_phase(dev, fresh_sim, scen)
     busy_share_phase(dev, fresh_sim)
+    launches = {}
+    lap("dense_main_path")
     launches["maxplus_conv"] = variants_phase(dev, fresh_sim)
+    lap("dense_variants")
 
     stats["maxplus_stages_batched"] = stage_kernel_phase(dev)
+    lap("stage_kernel")
 
     def fresh_fused_sim():
         return ClusterSim.build(
@@ -1669,19 +2216,37 @@ def main() -> int:
     )
     launches["maxplus_stages_batched"] = fused_main_path_phase(dev, fresh_fused_sim, scen_f)
     fused_busy_share_phase(dev, fresh_fused_sim)
+    lap("fused")
+
+    tree_wave_kernel_phase(dev)
+    lap("tree_waves")
+    apps1, surfs1 = surfaces.build_paper_suite(types.SYSTEM_1)
+    launches["maxplus_stages_batched"] += deep_tree_phase(dev, apps1, surfs1)
+    lap("deep_tree")
+    launches["maxplus_conv_batched"] = rack_tier_phase(dev, apps1, surfs1)
+    lap("rack_tier")
 
     ncf_cfg = ncf.NCFConfig(train_steps=NCF_TRAIN_STEPS, online_steps=NCF_ONLINE_STEPS)
     alloc, unseen = ncf_phase(dev, apps, surfs, ncf_cfg, NCF_HOST_STEPS)
-    launches["maxplus_conv_batched"] += policy_comparison_phase(
+    lap("ncf")
+    launches["maxplus_conv_batched"] += conv_main + policy_comparison_phase(
         dev, apps, surfs, alloc, unseen, N_NODES
     )
+    lap("policies")
     launches["maxplus_conv_batched"] += online_loop_phase(dev, apps, surfs, alloc, unseen)
+    lap("online_loop")
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     stats.update(serving_kernel_phase(dev))
+    lap("serving_kernels")
     launches.update(serving_main_path_phase(
         dev, configs.get_config(SERVE_ARCH), batch=SERVE_BATCH, prompt=SERVE_PROMPT,
         gen=SERVE_GEN, s_max=SERVE_S_MAX,
+    ))
+    lap("serving")
+    print("phase_seconds=" + json.dumps(
+        {name: round(t - marks[i][1], 3) for i, (name, t) in enumerate(marks[1:])}
+        | {"total": round(marks[-1][1] - marks[0][1], 3)}
     ))
 
     sources = {

@@ -1,10 +1,10 @@
 """Budget providers: what the budget is at round ``r``.
 
 The provider classes ``Scenario`` normalizes its budget, price and carbon
-signals into.  The composed providers (scaled, min), the step-override
-book of the topology path and the day-scale signal fixtures of the
-carbon-aware scenarios come with the topology and MPC slice (ROADMAP.md,
-queue 1, item 5).
+signals into, and the step-override book the engine routes
+``DomainCapChange`` events to.  The composed providers (scaled, min) and
+the day-scale signal fixtures of the carbon-aware scenarios come with the
+MPC slice (ROADMAP.md, queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -107,3 +107,43 @@ def as_provider(trace) -> BudgetProvider | None:
     if hasattr(trace, "budget_at"):
         return trace
     return TraceReplayProvider(trace)
+
+
+class OverrideBook:
+    """Mutable registry of per-domain cap-change steps (the engine's
+    ``DomainCapChange`` routing target).
+
+    Each domain id accumulates ``(round, cap)`` steps; :meth:`active`
+    resolves which override (if any) binds each domain at a given round —
+    a step applies from its round on, the latest applicable step wins.
+    Resolution shares :func:`as_watts` with the budget providers, and a
+    headroom query for a round before a change's round does not see the
+    future cap.
+    """
+
+    def __init__(self):
+        self._steps: dict[int, list[tuple[int, float]]] = {}
+
+    def set(self, domain_id: int, round: int, cap) -> None:
+        """Record: ``domain_id``'s cap becomes ``cap`` from ``round`` on."""
+        steps = self._steps.setdefault(int(domain_id), [])
+        steps.append((int(round), as_watts(cap)))
+        steps.sort(key=lambda s: s[0])
+
+    def active(self, r: int) -> dict[int, float]:
+        """domain id -> overriding cap binding at round ``r``."""
+        out: dict[int, float] = {}
+        for dom, steps in self._steps.items():
+            for rr, cap in steps:
+                if rr <= r:
+                    out[dom] = cap
+        return out
+
+    def clear(self) -> None:
+        self._steps.clear()
+
+    def __len__(self) -> int:
+        return len(self._steps)
+
+    def __bool__(self) -> bool:
+        return bool(self._steps)

@@ -11,7 +11,13 @@ One controller per policy:
    :class:`~repro_torch.cluster.predictor.OnlinePredictor` as its surface
    source: it serves its own surfaces (the engine hands it none), ingests
    each round's telemetry and refits on the predictor's device;
- * ``ecoshift`` — described below.
+ * ``ecoshift`` — described below;
+ * ``ecoshift_hier`` — EcoShift on a power-domain tree: receivers collapse
+   into behaviour classes within each leaf domain, and
+   ``mckp.solve_hierarchical`` (or, with ``fused=True``,
+   ``mckp.solve_hierarchical_fused`` on the device) splits the budget
+   under every domain's headroom.  The engine hands it the per-domain
+   headroom each round; ``last_domain_spent`` reports each domain's spend.
 
 The EcoShift controller caches per-receiver and per-behaviour-class
 ``OptionTable``s across rounds (tables are built to the grid's headroom
@@ -32,9 +38,9 @@ solves each round with ``solver``:
  * ``"jax"`` — the same dense DP on the plain PyTorch version;
  * ``"dense"`` — the numpy dense DP.
 
-The names are the reference's.  Receding-horizon (MPC) planning, the
-hierarchical controller and the fault paths (NACK pins, snapshots) raise
-``NotImplementedError`` naming their ROADMAP item.
+The names are the reference's.  Receding-horizon (MPC) planning and the
+fault paths (NACK pins, snapshots) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -154,7 +160,7 @@ class ControllerConfig:
     #: device-resident fused rounds (incremental sparse path only)
     fused: bool = False
     #: repro_torch.cluster.predictor.OnlinePredictor (required by the
-    #: online controller)
+    #: online controller; optional surface source for the hier controller)
     predictor: object | None = None
     #: Oracle brute-force toggle (None = auto, <= 10 receivers)
     exhaustive: bool | None = None
@@ -318,6 +324,9 @@ class _GroupingState:
             g = tuple(out)
             self._groups_cache[scope] = g
         return g
+
+    def by_scope(self) -> dict[int, tuple]:
+        return {scope: self.groups(scope) for scope in self.scopes}
 
 
 class _OptionCachingController(Controller):
@@ -596,12 +605,6 @@ class EcoShiftController(_OptionCachingController):
             self._alloc_cache[key] = alloc
         return alloc
 
-    def allocate_hierarchical(self, batch, budget, domain_extra):
-        raise NotImplementedError(
-            "hierarchical allocation is not ported yet: ROADMAP.md, queue 1, "
-            "item 3"
-        )
-
     def set_budget_outlook(self, caps, weights=None) -> None:
         raise NotImplementedError(
             "budget outlooks (MPC planning) are not ported yet: ROADMAP.md, "
@@ -635,6 +638,219 @@ class EcoShiftController(_OptionCachingController):
             )
             for budget, sol in zip(budgets, sols)
         ]
+
+
+@policies_mod.register_controller("ecoshift_hier")
+class EcoShiftHierController(EcoShiftController):
+    """Topology-aware EcoShift: two-level capped-frontier MCKP (DESIGN.md §12).
+
+    The engine hands this controller a columnar receiver batch with leaf
+    domain ids plus the round's per-domain extra-power headroom; receivers
+    collapse into behaviour classes within each leaf domain (the same warm
+    identity-keyed group tables as the flat path), each leaf's class DP
+    becomes a capped value-vs-spend frontier, and the upper-level DP splits
+    the cluster budget across domains (``mckp.solve_hierarchical``).
+
+    Warm state (``solver='sparse'``, the default): the shared aggregate-
+    curve cache plus a frontier cache keyed by (per-class digest +
+    multiplicity layout, quantized budget), both content-keyed, inside one
+    ``mckp.HierState``.  With ``fused=True`` the incremental round runs on
+    the device (``mckp.solve_hierarchical_fused``: the leaf scan and every
+    combine wave as stage-kernel launches) and routes to the host only for
+    the reference's fallback reasons.  The dense ``'jax'``/``'pallas'``
+    path recomputes its layouts each round on the device.  Passing
+    ``predictor`` serves every receiver surface from an
+    :class:`~repro_torch.cluster.predictor.OnlinePredictor`, as
+    ``ecoshift_online`` does.
+    """
+
+    policy = "ecoshift_hier"
+    supports_hierarchical = True
+
+    #: LRU bound of the leaf-frontier cache
+    MAX_FRONTIERS = 512
+
+    _NO_TOPOLOGY = (
+        "ecoshift_hier allocates per power domain — attach a PowerTopology "
+        "to the sim/scenario, or use 'ecoshift' for flat allocation"
+    )
+
+    def __init__(
+        self,
+        system: SystemSpec,
+        *,
+        config: ControllerConfig | None = None,
+        solver: str | None = None,
+        unit: float | None = None,
+        predictor=None,
+        incremental: bool | None = None,
+        fused: bool | None = None,
+        horizon: int | None = None,
+        device: str | torch.device | None = None,
+    ):
+        cfg = (config if config is not None else ControllerConfig()).merged(
+            solver=solver, unit=unit, predictor=predictor,
+            incremental=incremental, fused=fused, horizon=horizon, device=device,
+        )
+        super().__init__(system, config=cfg)
+        #: repro_torch.core.topology.PowerTopology, bound by the engine
+        #: (bind_topology)
+        self.topology = None
+        #: optional OnlinePredictor: serves surfaces, ingests telemetry
+        self.predictor = cfg.predictor
+        #: (class layout, quantized budget) -> leaf frontier DP arrays
+        self._frontiers = mckp.LRUCache(self.MAX_FRONTIERS)
+        #: persistent hierarchical warm state (frontier aggregation tree
+        #: combines, pick multisets, leaf solutions, merged-class plans),
+        #: content-keyed and LRU-bounded
+        self._hier_state = mckp.HierState(
+            curve_cache=self._agg_curves,
+            frontier_cache=self._frontiers,
+            chain_cache=self._chain_cache,
+            pick_cache=self._pick_cache,
+            plan_cache=self._plan_cache,
+            max_leaf_solutions=128,
+        )
+        #: per-domain watts spent by the latest hierarchical solve
+        self.last_domain_spent: dict[str, float] | None = None
+
+    @property
+    def serves_own_surfaces(self) -> bool:
+        return self.predictor is not None
+
+    def bind_topology(self, topology) -> None:
+        """Attach (or swap) the domain tree; a swap drops warm state."""
+        if self.topology is not None and self.topology is not topology:
+            self.invalidate()
+        self.topology = topology
+
+    def _served_batch(self, batch: ReceiverBatch) -> ReceiverBatch:
+        if self.predictor is None:
+            return batch
+        served = [
+            self.predictor.surface_for(name, sid)
+            for name, sid in zip(batch.names, batch.surface_ids)
+        ]
+        return _served_replace(batch, served)
+
+    def allocate(self, receivers, baselines, budget, surfaces):
+        # reached only when the engine has no topology attached: a silent
+        # flat fallback under the hier name would hide the missing tree
+        raise ValueError(self._NO_TOPOLOGY)
+
+    def allocate_grouped(self, batch: ReceiverBatch, budget: float):
+        raise ValueError(self._NO_TOPOLOGY)
+
+    def invalidate(self, names: Sequence[str] | None = None) -> None:
+        super().invalidate(names)
+        if names is None:
+            self._frontiers.clear()
+            self._hier_state.clear()
+
+    def _grouped_options_by_leaf(
+        self, batch: ReceiverBatch
+    ) -> dict[int, list[mckp.GroupedOptions]]:
+        """Per-leaf-domain behaviour-class collapse over the warm tables."""
+        by_leaf: dict[int, list[mckp.GroupedOptions]] = {}
+        leaf_ids = np.asarray(batch.domain_ids)
+        for leaf in np.unique(leaf_ids):
+            ii = np.flatnonzero(leaf_ids == leaf)
+            by_leaf[int(leaf)] = mckp.collapse_receivers(
+                [batch.names[i] for i in ii],
+                [batch.surfaces[i] for i in ii],
+                batch.baselines[ii],
+                self._group_table,
+            )
+        return by_leaf
+
+    def allocate_hierarchical(
+        self, batch: ReceiverBatch, budget: float, domain_extra: np.ndarray
+    ) -> Allocation:
+        """One topology-aware round: per-domain capped frontiers + the
+        upper-level budget-split DP through the frontier aggregation tree.
+        ``domain_extra`` is the per-domain extra-power headroom (preorder
+        ids, caps net of committed draw).
+
+        Incremental path (default, sparse solver, engine-sequenced
+        batches): the per-leaf grouping is delta-maintained from the
+        batch, unchanged leaves reuse their frontier DPs and assembled
+        solutions, and a round whose classes, budget and headroom are all
+        unchanged returns the cached Allocation (``last_solver = "cache"``)
+        — always bit-for-bit the from-scratch solve.  The reference's NACK
+        pins come with the fault paths (ROADMAP.md, queue 1, item 5)."""
+        if self.topology is None:
+            raise ValueError("ecoshift_hier needs a bound PowerTopology")
+        if batch.domain_ids is None:
+            raise ValueError("receiver batch carries no domain ids")
+        batch = self._served_batch(batch)
+        incremental = (
+            self.incremental
+            and self.solver == "sparse"
+            and getattr(batch, "seq", 0) != 0
+        )
+        state = None
+        key = None
+        if incremental:
+            self._grouping.sync(
+                batch, np.asarray(batch.domain_ids), self._group_table
+            )
+            by_leaf = self._grouping.by_scope()
+            state = self._hier_state
+            key = (
+                tuple(
+                    (leaf, tuple(sorted(mckp._group_token(g) for g in groups)))
+                    for leaf, groups in sorted(by_leaf.items())
+                ),
+                mckp._qkey(budget),
+                np.asarray(domain_extra).tobytes(),
+            )
+            hit = self._alloc_cache.get(key)
+            if hit is not None:
+                self.last_domain_spent = hit[1]
+                self.last_solver = "cache"
+                self.last_device_s = 0.0
+                self.last_fallback_reason = ""
+                return hit[0]
+        else:
+            by_leaf = self._grouped_options_by_leaf(batch)
+        root = policies_mod.domain_tree(self.topology, domain_extra, by_leaf)
+        sol = None
+        self.last_device_s = 0.0
+        self.last_fallback_reason = ""
+        if incremental and self.fused:
+            fstate = self._fused_state
+            d0 = fstate.stats["device_s"]
+            sol = mckp.solve_hierarchical_fused(
+                root, budget, state=self._hier_state, fstate=fstate,
+                device=self.device,
+            )
+            self.last_device_s = fstate.stats["device_s"] - d0
+            if sol is None:
+                self.last_fallback_reason = fstate.stats["fallback_reason"]
+        self.last_solver = "fused" if sol is not None else "host"
+        if sol is None:
+            sol = mckp.solve_hierarchical(
+                root,
+                budget,
+                solver=self.solver,
+                unit=self.unit,
+                curve_cache=self._agg_curves,
+                frontier_cache=self._frontiers,
+                state=state,
+                device=self.device,
+            )
+        self.last_domain_spent = sol.domain_spent
+        alloc = policies_mod.allocation_from_solution(
+            sol, batch.baselines_map(), budget, self.system.grid
+        )
+        if key is not None:
+            self._alloc_cache[key] = (alloc, sol.domain_spent)
+        return alloc
+
+    def ingest_telemetry(self, records) -> None:
+        if self.predictor is not None:
+            self.predictor.observe(records)
+            self.predictor.refresh()
 
 
 @policies_mod.register_controller("ecoshift_online", pure=False)

@@ -2,14 +2,23 @@
 
 A ``Scenario`` describes what happens when: the reclaimed budget (and
 optional price / CO2-intensity signals) per round and the cluster events —
-node failures, arrivals, straggler onsets, workload phase changes.
-Signals are provider-backed (``repro_torch.cluster.budget``); a raw trace
-(scalar, per-round sequence holding its last value, or callable) is
-wrapped into a ``TraceReplayProvider``.  A budget of ``None`` means
-"derive the pool from donor headroom this round".
+node failures, arrivals, straggler onsets, workload phase changes and
+power-domain cap changes.  Signals are provider-backed
+(``repro_torch.cluster.budget``); a raw trace (scalar, per-round sequence
+holding its last value, or callable) is wrapped into a
+``TraceReplayProvider``.  A budget of ``None`` means "derive the pool from
+donor headroom this round".
 
-Power topologies, domain cap changes and fault injection are not ported
-yet: their builders raise (ROADMAP.md, queue 1, item 5).
+A scenario may attach a power topology (``with_topology``): the rack/PDU
+domain tree the engine enforces.  Attachment makes node-id events fail
+fast — ``with_failure`` / ``with_straggler`` / ``with_phase_change``
+referencing node ids no leaf domain owns raise at build time instead of
+mid-sim — and enables ``DomainCapChange`` events (e.g. a rack PDU
+derating mid-scenario).  The engine applies a round's events, cap changes
+included, before it resolves that round's budget and domain headroom.
+
+Fault injection is not ported yet: its builders raise (ROADMAP.md,
+queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -21,9 +30,8 @@ from repro_torch.cluster import budget as budget_mod
 from repro_torch.core.surfaces import PowerSurface
 from repro_torch.core.types import AppSpec
 
-TOPOLOGY_NOT_PORTED = (
-    "power topologies, domain caps and fault injection are not ported "
-    "yet: ROADMAP.md, queue 1, item 5"
+FAULTS_NOT_PORTED = (
+    "fault injection is not ported yet: ROADMAP.md, queue 1, item 5"
 )
 
 
@@ -65,9 +73,56 @@ class NodeArrival:
     app: AppSpec
     caps: tuple[float, float] | None = None
     surface: PowerSurface | None = None
+    #: leaf power-domain placement (required by topology-constrained sims
+    #: when the assigned node id falls outside every leaf's range)
+    domain: str | None = None
 
 
-Event = Union[NodeFailure, StragglerOnset, PhaseChange, NodeArrival]
+@dataclasses.dataclass(frozen=True)
+class DomainCapChange:
+    """A power domain's cap moves to ``cap`` watts from ``round`` on — a
+    rack PDU derating, a site-level demand-response curtailment.  Applies
+    to any domain (leaf or internal) of the simulation's topology."""
+
+    round: int
+    domain: str
+    cap: float
+
+
+Event = Union[
+    NodeFailure, StragglerOnset, PhaseChange, NodeArrival, DomainCapChange
+]
+
+
+def _validate_against_topology(events: Sequence[Event], topology) -> None:
+    """Build-time fail-fast: every node-id event must reference ids some
+    leaf domain owns, and domain events must name existing domains (one
+    vectorized ``leaf_of`` per node-id event)."""
+    for e in events:
+        if isinstance(e, (NodeFailure, StragglerOnset, PhaseChange)):
+            ids = list(e.node_ids) if isinstance(e, NodeFailure) else [e.node_id]
+            try:
+                topology.leaf_of(ids)
+            except ValueError as err:
+                raise ValueError(
+                    f"{type(e).__name__} at round {e.round}: {err}"
+                ) from None
+        elif isinstance(e, NodeArrival):
+            if e.domain is not None:
+                try:
+                    topology.require_leaf(e.domain)
+                except ValueError as err:
+                    raise ValueError(f"arrival at round {e.round}: {err}") from None
+        elif isinstance(e, DomainCapChange):
+            if e.domain not in topology.index:
+                raise ValueError(
+                    f"cap change at round {e.round} references unknown "
+                    f"domain {e.domain!r}"
+                )
+            if e.cap <= 0:
+                raise ValueError(
+                    f"cap change at round {e.round}: cap must be positive"
+                )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +135,10 @@ class Scenario:
     #: optional power price per round, recorded alongside results
     power_price: object = None
     events: tuple[Event, ...] = ()
+    #: optional power-domain tree (repro_torch.core.topology.PowerTopology);
+    #: the engine adopts and enforces it, and the builders validate node-id
+    #: events against its leaf ranges at build time
+    topology: object | None = None
     #: optional grid CO2-intensity signal, recorded alongside results
     carbon: object = None
 
@@ -117,11 +176,15 @@ class Scenario:
         return Scenario(n_rounds=n_rounds, budget=budget)
 
     def with_events(self, events: Sequence[Event]) -> "Scenario":
+        """Attach events (one replace, one validation sweep against the
+        attached topology, if any)."""
         for e in events:
             if not 0 <= e.round < self.n_rounds:
                 raise ValueError(
                     f"event round {e.round} outside [0, {self.n_rounds})"
                 )
+        if self.topology is not None:
+            _validate_against_topology(events, self.topology)
         return dataclasses.replace(self, events=self.events + tuple(events))
 
     def with_event(self, event: Event) -> "Scenario":
@@ -150,19 +213,28 @@ class Scenario:
         app: AppSpec,
         caps: tuple[float, float] | None = None,
         surface: PowerSurface | None = None,
+        domain: str | None = None,
     ) -> "Scenario":
         return self.with_event(
-            NodeArrival(round=round, app=app, caps=caps, surface=surface)
+            NodeArrival(
+                round=round, app=app, caps=caps, surface=surface, domain=domain
+            )
         )
 
     def with_topology(self, topology) -> "Scenario":
-        raise NotImplementedError(TOPOLOGY_NOT_PORTED)
+        """Attach the power-domain tree: existing events are validated
+        against its leaf ranges in one sweep, and every later builder call
+        validates what it adds."""
+        _validate_against_topology(self.events, topology)
+        return dataclasses.replace(self, topology=topology)
 
     def with_domain_cap(self, round: int, domain: str, cap: float) -> "Scenario":
-        raise NotImplementedError(TOPOLOGY_NOT_PORTED)
+        """A rack/PDU derating (or uprating): ``domain``'s cap becomes
+        ``cap`` watts from ``round`` on."""
+        return self.with_event(DomainCapChange(round=round, domain=domain, cap=cap))
 
     def with_faults(self, faults) -> "Scenario":
-        raise NotImplementedError(TOPOLOGY_NOT_PORTED)
+        raise NotImplementedError(FAULTS_NOT_PORTED)
 
     def with_fault_storm(self, seed: int = 0, **rates) -> "Scenario":
-        raise NotImplementedError(TOPOLOGY_NOT_PORTED)
+        raise NotImplementedError(FAULTS_NOT_PORTED)

@@ -26,10 +26,17 @@ previous batch object back, and a round whose dirty rows the log bounds
 gets a patched batch naming the changed positions.  That is what the
 incremental controller's grouping and allocation cache key on.
 
-Not ported yet (ROADMAP.md, queue 1, item 5): power topologies with their
-per-domain accounting, the fault-injection actuation and PowerGuard path,
-receding-horizon budget outlooks, and the device-resident ``DeviceView``
-of the node columns.  The reference's natural-draw and baseline-runtime
+A sim may carry a power-domain tree (``topology=``, or a scenario's
+``with_topology``): every node interns its owning leaf, the round hands
+hierarchical controllers (``supports_hierarchical``) each domain's
+extra-power headroom (cap, with ``DomainCapChange`` overrides, net of the
+committed draw), and after every allocation the engine records each
+domain's draw and cap (``RoundRecord.domain_draw`` / ``domain_caps``) and,
+for hierarchical controllers, raises on any domain driven past its cap.
+
+Not ported yet (ROADMAP.md, queue 1, item 5): the fault-injection
+actuation and PowerGuard path, receding-horizon budget outlooks, and the
+device-resident ``DeviceView`` of the node columns.  The reference's natural-draw and baseline-runtime
 caches are left out: they speed up the host side and never change a
 result.
 """
@@ -45,9 +52,10 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.cluster import budget as budget_mod
 from repro_torch.cluster import scenario as scenario_mod
 from repro_torch.cluster.predictor import TelemetryBatch
-from repro_torch.cluster.scenario import TOPOLOGY_NOT_PORTED, Scenario
+from repro_torch.cluster.scenario import Scenario
 from repro_torch.core.surfaces import PowerSurface
 from repro_torch.core.types import (
     AppSpec,
@@ -229,6 +237,7 @@ class NodeTable:
         surface_id: str,
         sclass: str,
         caps: tuple[float, float],
+        domain_id: int = -1,
     ) -> None:
         self.node_ids = np.append(self.node_ids, np.int64(node_id))
         self.caps = np.concatenate(
@@ -249,7 +258,7 @@ class NodeTable:
         self.sclass_gid = np.append(
             self.sclass_gid, np.int32(self.interner.intern(sclass))
         )
-        self.domain_id = np.append(self.domain_id, np.int32(-1))
+        self.domain_id = np.append(self.domain_id, np.int32(domain_id))
 
     def next_node_id(self) -> int:
         return 1 + int(self.node_ids.max()) if len(self) else 0
@@ -322,9 +331,12 @@ class RoundRecord:
     #: per-receiver noisy measurements (a TelemetryBatch)
     telemetry: object = ()
     #: host-clock seconds of the round's phases (partition_s, batch_s,
-    #: allocate_s, measure_s); allocate_s ends after the solver's
-    #: device -> host copy, so it covers the device work
+    #: allocate_s, conserve_s, measure_s); allocate_s ends after the
+    #: solver's device -> host copy, so it covers the device work
     seconds: dict | None = None
+    #: per-domain draw / cap watts this round (topology sims only)
+    domain_draw: dict | None = None
+    domain_caps: dict | None = None
 
     @property
     def avg_improvement(self) -> float:
@@ -364,6 +376,7 @@ class ClusterSim:
     Constructed from a ``nodes`` list (ingested into a :class:`NodeTable`)
     or from an existing ``table``.  ``device`` is where controllers built
     by name solve (None = the CUDA card; raises when there is none).
+    ``topology`` attaches a power-domain tree (:meth:`attach_topology`).
     """
 
     def __init__(
@@ -378,8 +391,6 @@ class ClusterSim:
         topology=None,
         device: str | torch.device | None = None,
     ):
-        if topology is not None:
-            raise NotImplementedError(TOPOLOGY_NOT_PORTED)
         self.system = system
         self.device = resolve_device(device)
         #: true surfaces keyed by *base* app name
@@ -405,6 +416,16 @@ class ClusterSim:
         self.last_telemetry: object = ()
         #: host-clock seconds of the latest round's phases
         self.last_round_seconds: dict[str, float] = {}
+        #: hierarchical power-domain tree (core.topology.PowerTopology)
+        self.topology = None
+        #: DomainCapChange routing: per-domain (round, cap) steps, a step
+        #: applying from its round on
+        self._cap_overrides = budget_mod.OverrideBook()
+        #: per-domain draw/cap observed by the latest topology round
+        self.last_domain_draw: dict[str, float] | None = None
+        self.last_domain_caps: dict[str, float] | None = None
+        if topology is not None:
+            self.attach_topology(topology)
 
     @staticmethod
     def build(
@@ -430,6 +451,68 @@ class ClusterSim:
             device=device,
         )
 
+    # -- power-domain topology ------------------------------------------------
+
+    def attach_topology(self, topology) -> None:
+        """Adopt a power-domain tree: intern every node's owning leaf.
+
+        Raises if any current node id sits outside every leaf range (the
+        engine-side counterpart of the scenario's build-time check).
+        Interning happens before any state changes, so a failed attach
+        leaves the sim as it was.
+        """
+        t = self.table
+        domain_id = topology.leaf_of(t.node_ids).astype(np.int32) if len(t) else None
+        self.topology = topology
+        self._cap_overrides = budget_mod.OverrideBook()
+        if domain_id is not None:
+            t.domain_id = domain_id
+            t.bump()
+
+    def _committed_draw(self, recv_rows: np.ndarray | None = None) -> np.ndarray:
+        """[n] per-node committed watts: a receiver pins its baseline cap
+        allotment, a donor its natural draw, a dead node nothing.
+
+        ``recv_rows`` forces those rows to receiver accounting: a node the
+        slack heuristic would call a donor but that a caller passes as a
+        receiver is grown from its baseline, so it commits its caps.
+        """
+        t = self.table
+        nat, donor = self._donor_mask()
+        committed = np.where(donor, nat.sum(axis=1), t.caps.sum(axis=1))
+        if recv_rows is not None and len(recv_rows):
+            committed[recv_rows] = t.caps[recv_rows].sum(axis=1)
+        committed[~t.alive] = 0.0
+        return committed
+
+    def domain_headroom(
+        self,
+        round_index: int = 0,
+        recv_rows: np.ndarray | None = None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Per-domain ``(extra, committed, caps)`` at ``round_index``.
+
+        ``caps`` resolves each domain's cap trace with the ``DomainCapChange``
+        overrides active at that round; ``committed`` aggregates the
+        per-node committed draw up the tree (``recv_rows`` as in
+        :meth:`_committed_draw`); ``extra`` is the headroom the
+        hierarchical allocator may spend inside each domain (>= 0).
+        """
+        topo = self.topology
+        caps = topo.cap_at(round_index, self._cap_overrides.active(round_index))
+        leaf = np.zeros(len(topo), dtype=np.float64)
+        t = self.table
+        if len(t):
+            owned = t.domain_id >= 0
+            leaf += np.bincount(
+                t.domain_id[owned],
+                weights=self._committed_draw(recv_rows)[owned],
+                minlength=len(topo),
+            )
+        committed = topo.aggregate_leaves(leaf)
+        extra = np.clip(caps - committed, 0.0, None)
+        return extra, committed, caps
+
     # -- node state ----------------------------------------------------------
 
     @property
@@ -440,7 +523,12 @@ class ClusterSim:
 
     @nodes.setter
     def nodes(self, value: Sequence[NodeState]) -> None:
-        self.table = NodeTable.from_nodes(value)
+        table = NodeTable.from_nodes(value)
+        if self.topology is not None and len(table):
+            # intern before swapping state in: a failed leaf_of leaves the
+            # sim's previous table intact
+            table.domain_id = self.topology.leaf_of(table.node_ids).astype(np.int32)
+        self.table = table
 
     def _surface(self, node: NodeState) -> PowerSurface:
         return self._surface_of(node.base_app, node.slowdown)
@@ -466,6 +554,17 @@ class ClusterSim:
             nat[t.base_gid == gid] = (float(c), float(g))
         return nat
 
+    def _donor_mask(self) -> tuple[np.ndarray, np.ndarray]:
+        """(natural draws [n, 2], donor mask [n]): a node donates iff its
+        natural draw sits below its caps on both components (margin 1 W).
+        The one donor predicate shared by partitioning and the per-domain
+        committed-draw accounting."""
+        t = self.table
+        nat = self._natural_draws()
+        slack = t.caps - nat
+        donor = t.alive & (slack[:, 0] > 1.0) & (slack[:, 1] > 1.0)
+        return nat, donor
+
     def partition_rows(self) -> tuple[np.ndarray, np.ndarray, float]:
         """Array-native partition: (donor_rows, receiver_rows, pool).
 
@@ -483,8 +582,7 @@ class ClusterSim:
         c = self._part_cache
         if c is not None and c[0] is t and c[1] == t.version and np.array_equal(c[2], nat):
             return c[3:]
-        slack = t.caps - nat
-        donor = t.alive & (slack[:, 0] > 1.0) & (slack[:, 1] > 1.0)
+        _, donor = self._donor_mask()
         recv = t.alive & ~donor
         dead = ~t.alive
         pool = float(t.caps[dead].sum() + (t.caps - nat)[donor].sum())
@@ -538,6 +636,21 @@ class ClusterSim:
                         f"no surface for arriving app {event.app.name!r}"
                     )
                 nid = t.next_node_id()
+                domain_id = -1
+                if self.topology is not None:
+                    if event.domain is not None:
+                        domain_id = self.topology.require_leaf(event.domain)
+                    else:
+                        # the assigned id must fall inside some leaf range
+                        try:
+                            domain_id = int(self.topology.leaf_of([nid])[0])
+                        except ValueError:
+                            raise ValueError(
+                                f"arrival of {event.app.name!r} at round "
+                                f"{event.round} got node id {nid}, which no "
+                                f"leaf domain owns — pass "
+                                f"NodeArrival(domain=...) to place it"
+                            ) from None
                 caps = event.caps or (self.system.init_cpu, self.system.init_gpu)
                 t.append(
                     node_id=nid,
@@ -546,8 +659,19 @@ class ClusterSim:
                     surface_id=event.app.surface_id,
                     sclass=event.app.sclass,
                     caps=caps,
+                    domain_id=domain_id,
                 )
                 dirty.append(np.array([len(t) - 1], dtype=np.int64))
+            elif isinstance(event, scenario_mod.DomainCapChange):
+                if self.topology is None:
+                    raise ValueError(
+                        "DomainCapChange requires an attached PowerTopology"
+                    )
+                if event.domain not in self.topology.index:
+                    raise KeyError(f"unknown domain {event.domain!r}")
+                self._cap_overrides.set(
+                    self.topology.index[event.domain], event.round, event.cap
+                )
             else:
                 raise TypeError(
                     f"unknown event type {type(event).__name__!r}: {event!r}"
@@ -728,6 +852,7 @@ class ClusterSim:
             surface_ids=surface_ids,
             baselines=t.caps[rows],
             surfaces=surfaces,
+            domain_ids=t.domain_id[rows] if self.topology is not None else None,
             seq=next(_BATCH_SEQ),
             prev_seq=c_batch.seq,
             delta=tuple(int(p) for p in pos),
@@ -783,11 +908,59 @@ class ClusterSim:
             surface_ids=[strings[t.sid_gid[r]] for r in rows],
             baselines=t.caps[rows],
             surfaces=surfaces,
+            domain_ids=t.domain_id[rows] if self.topology is not None else None,
             seq=next(_BATCH_SEQ),
         )
         if mode is not None:
             self._batch_cache = (t, mode, t.version, rows, batch)
         return batch
+
+    def _check_domain_conservation(
+        self,
+        recv_rows: np.ndarray,
+        names: Sequence[str],
+        base: np.ndarray,
+        new: np.ndarray,
+        round_index: int,
+        headroom: tuple[np.ndarray, np.ndarray, np.ndarray],
+        *,
+        enforce: bool,
+    ) -> None:
+        """Per-domain draw accounting after an allocation (``new`` the
+        allocated caps aligned with ``names``).
+
+        Every domain's draw (committed + allocated extra, aggregated up the
+        tree) lands in ``last_domain_draw`` / ``last_domain_caps``; with
+        ``enforce`` an allocation that spends past a domain's headroom
+        raises (the hierarchical allocator's conservation guarantee).
+        Flat controllers on a topology sim only get the accounting.
+        """
+        topo = self.topology
+        t = self.table
+        leaf = np.zeros(len(topo), dtype=np.float64)
+        if len(names):
+            extra_node = new.sum(axis=1) - base.sum(axis=1)
+            leaf += np.bincount(
+                t.domain_id[recv_rows], weights=extra_node, minlength=len(topo)
+            )
+        spend = topo.aggregate_leaves(leaf)
+        extra, committed, caps = headroom
+        draw = committed + spend
+        dnames = topo.names
+        self.last_domain_draw = dict(zip(dnames, draw.tolist()))
+        self.last_domain_caps = dict(zip(dnames, caps.tolist()))
+        if enforce:
+            # the allocator answers for the extra it places: never past a
+            # domain's headroom (a cap already below the committed draw is
+            # unsatisfiable under the monotone-upgrade model: 0 headroom)
+            over = np.flatnonzero(spend > extra + 1e-6)
+            if over.size:
+                i = int(over[0])
+                raise RuntimeError(
+                    f"round {round_index}: domain {dnames[i]!r} draws "
+                    f"{draw[i]:.3f} W over its {caps[i]:.3f} W cap "
+                    f"(allocated {spend[i]:.3f} W > {extra[i]:.3f} W headroom)"
+                )
 
     def run_round(
         self,
@@ -803,10 +976,12 @@ class ClusterSim:
 
         ``policy_surfaces`` is what the policy sees (predicted surfaces for
         EcoShift; defaults to true surfaces keyed per instance).  ``budget``
-        defaults to the donor-derived reclaimed pool.  Controllers with
-        ``supports_grouped`` allocate from a columnar ``ReceiverBatch``;
-        everyone else gets the per-instance view.  Phase seconds of the
-        round land in ``last_round_seconds``.
+        defaults to the donor-derived reclaimed pool.  On a topology sim a
+        controller with ``supports_hierarchical`` allocates from a batch
+        with leaf domain ids and the per-domain headroom; otherwise
+        controllers with ``supports_grouped`` allocate from a columnar
+        ``ReceiverBatch`` and everyone else gets the per-instance view.
+        Phase seconds of the round land in ``last_round_seconds``.
         """
         secs = self.last_round_seconds = {}
         t = self.table
@@ -822,11 +997,19 @@ class ClusterSim:
             )
         b = float(pool if budget is None else budget)
         base = t.caps[recv_rows]
+        hierarchical = self.topology is not None and getattr(
+            controller, "supports_hierarchical", False
+        )
+        headroom = (
+            self.domain_headroom(round_index, recv_rows)
+            if self.topology is not None
+            else None
+        )
         secs["partition_s"] = _time.perf_counter() - tp
 
         tp = _time.perf_counter()
         batch = None
-        if getattr(controller, "supports_grouped", False):
+        if hierarchical or getattr(controller, "supports_grouped", False):
             batch = self._receiver_batch(
                 recv_rows,
                 policy_surfaces,
@@ -837,7 +1020,10 @@ class ClusterSim:
         secs["batch_s"] = _time.perf_counter() - tp
 
         tp = _time.perf_counter()
-        if batch is not None:
+        if hierarchical:
+            controller.bind_topology(self.topology)
+            alloc = controller.allocate_hierarchical(batch, b, headroom[0])
+        elif batch is not None:
             alloc = controller.allocate_grouped(batch, b)
         else:
             recv_nodes = t.views(recv_rows)
@@ -854,8 +1040,16 @@ class ClusterSim:
         secs["allocate_s"] = _time.perf_counter() - tp
 
         tp = _time.perf_counter()
-        rng = self.round_rng(controller.policy, round_index)
         new = np.array([alloc.caps[nm] for nm in names], dtype=np.float64)
+        if self.topology is not None:
+            self._check_domain_conservation(
+                recv_rows, names, base, new, round_index, headroom,
+                enforce=hierarchical,
+            )
+        secs["conserve_s"] = _time.perf_counter() - tp
+
+        tp = _time.perf_counter()
+        rng = self.round_rng(controller.policy, round_index)
         t0, t1, imp = self._measure_rows(recv_rows, base, new, rng)
         improvements = dict(zip(names, imp.tolist()))
         self.last_telemetry = TelemetryBatch(
@@ -891,7 +1085,9 @@ class ClusterSim:
 
         ``controller`` is a Controller or a registered policy name (built
         on this sim's device).  ``policy_surfaces`` may be a mapping or a
-        callable ``sim -> mapping`` re-evaluated each round.
+        callable ``sim -> mapping`` re-evaluated each round.  A scenario's
+        topology is attached here unless the sim already carries one (a
+        different one raises).
         """
         if isinstance(controller, str):
             from repro_torch.core import policies as policies_mod
@@ -899,6 +1095,13 @@ class ClusterSim:
             controller = policies_mod.get_controller(
                 controller, self.system, device=self.device
             )
+        if scenario.topology is not None:
+            if self.topology is None:
+                self.attach_topology(scenario.topology)
+            elif self.topology is not scenario.topology:
+                raise ValueError(
+                    "scenario topology differs from the sim's attached one"
+                )
         records: list[RoundRecord] = []
         for r in range(scenario.n_rounds):
             events = scenario.events_at(r)
@@ -930,6 +1133,8 @@ class ClusterSim:
                     carbon_intensity=scenario.carbon_at(r),
                     telemetry=self.last_telemetry,
                     seconds=dict(self.last_round_seconds),
+                    domain_draw=self.last_domain_draw,
+                    domain_caps=self.last_domain_caps,
                 )
             )
             controller.ingest_telemetry(self.last_telemetry)

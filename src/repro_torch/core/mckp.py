@@ -1,19 +1,28 @@
 """Multiple-choice-knapsack solvers for reclaimed-power distribution (§3.2.2).
 
-The port of ``repro.core.mckp``, minus the hierarchical and receding-horizon
-solvers (ROADMAP.md, queue 1).  Three families, each bitwise equal to the
+The port of ``repro.core.mckp``, minus the receding-horizon (MPC) planner
+(ROADMAP.md, queue 1, item 5).  Four families, each bitwise equal to the
 reference:
 
  * the host sparse solvers — ``solve_sparse`` (paper Algorithm 1, the dict
    DP) and the group-collapsed ``solve_sparse_grouped`` (binary-split
    aggregate curves, super-stage DP, canonical assembly) with their warm
    caches; numpy, carried over as is.  ``solver="sparse"`` is the default.
- * the fused device round — ``solve_grouped_fused`` keeps padded option
-   banks resident on a torch device (``FusedState``) and runs the leaf DP
-   as one sparse-option (max,+) stage per padded stage
-   (``repro_torch.kernels.ops.maxplus_stage_batched``: the CUDA kernel on a
-   CUDA device, its plain version on the CPU) in float64.  Only the flat
-   kind is ported; the tree and leaf-root kinds raise.
+ * the hierarchical solvers — ``solve_hierarchical`` over a
+   ``DomainGroups`` power-domain tree: each leaf's class DP becomes a
+   capped value-vs-spend frontier and sibling frontiers fold through a
+   balanced aggregation tree under every domain's cap (``HierState`` keeps
+   it warm).  The sparse form is numpy; the dense form (``"jax"`` /
+   ``"pallas"``) runs every leaf's scan as one row-batched (max,+)
+   convolution a stage on a torch device and combines the frontiers in
+   numpy.
+ * the fused device round — ``solve_grouped_fused`` (the flat kind) and
+   ``solve_hierarchical_fused`` (the ``tree`` and ``leaf_root`` kinds) keep
+   padded option banks resident on a torch device (``FusedState``) and run
+   every leaf DP in one launch of the sparse-option (max,+) stage kernel
+   (``repro_torch.kernels.ops.maxplus_stages_batched``: the CUDA kernel on
+   a CUDA device, its plain version on the CPU) in float64, then, for a
+   tree, one launch of the same kernel a combine wave.
  * the dense-grid solvers — ``solve_dense`` (numpy) and ``solve_dense_jax``
    (a loop of (max,+) convolution stages on a torch device), with grouped
    and budget-batched forms.  Their ``backend`` strings keep the
@@ -31,6 +40,7 @@ solvers reproduce.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 import time
@@ -109,6 +119,8 @@ class MCKPSolution:
     spent: float  # watts used out of the budget
     #: per-receiver picks: name -> (cost_watts, value, (c, g))
     picks: dict[str, tuple[float, float, tuple[float, float]]]
+    #: per-domain watts spent (hierarchical solves only)
+    domain_spent: dict[str, float] | None = None
 
     def average_improvement(self) -> float:
         n = len(self.picks)
@@ -1035,7 +1047,437 @@ def solve_sparse_grouped(
 
 
 # ---------------------------------------------------------------------------
-# Fused device-resident sparse solve (DESIGN.md §14/§17), flat kind
+# Hierarchical (two-level) solve over a power-domain tree (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DomainGroups:
+    """One power domain's slice of an allocation round.
+
+    ``cap`` is the domain's *extra-power headroom* in watts — its physical
+    cap net of the draw already committed under it (baselines of member
+    receivers, natural draw of member donors; the engine does that
+    accounting).  A leaf carries the behaviour-class ``groups`` of its
+    member receivers (possibly empty); an internal domain carries
+    ``children``.
+    """
+
+    name: str
+    cap: float
+    groups: tuple[GroupedOptions, ...] = ()
+    children: tuple["DomainGroups", ...] = ()
+
+    def __post_init__(self):
+        if self.groups and self.children:
+            raise ValueError(
+                f"domain {self.name!r}: groups and children are exclusive"
+            )
+
+
+class HierState:
+    """Persistent warm state for (incremental) hierarchical sparse solving.
+
+    Every cache is *content-keyed* — digests + multiplicities + quantized
+    budgets for curves/frontiers, content tokens for the aggregation-tree
+    combines, group-identity tokens for plans and leaf solutions — so a
+    warm re-solve is **bit-for-bit** the from-scratch solve: a cache entry
+    is only ever reused for inputs under which it would be recomputed
+    identically.  A steady-state round therefore costs O(what changed):
+
+     * an unchanged leaf reuses its frontier DP and its assembled solution;
+     * a changed leaf re-runs its class super-stages and re-aggregates
+       through the balanced frontier **aggregation tree**, recombining only
+       the O(log n_leaves) tree nodes on its root path;
+     * unchanged classes inside a dirty leaf still reuse their aggregate
+       curves and unwound pick multisets.
+
+    All caches are LRU-bounded so long scenarios with drifting budgets or
+    digests cannot grow warm state without bound.
+    """
+
+    def __init__(
+        self,
+        curve_cache: MutableMapping | None = None,
+        frontier_cache: MutableMapping | None = None,
+        *,
+        chain_cache: MutableMapping | None = None,
+        pick_cache: MutableMapping | None = None,
+        plan_cache: MutableMapping | None = None,
+        max_curves: int = 1024,
+        max_frontiers: int = 512,
+        max_picks: int = 8192,
+        max_leaf_solutions: int = 128,
+        max_plans: int = 256,
+    ):
+        self.curve_cache: MutableMapping = (
+            LRUCache(max_curves) if curve_cache is None else curve_cache
+        )
+        #: (digest, budget) -> doubling chain, shielded from (d, m) churn
+        self.chain_cache: MutableMapping = (
+            LRUCache(512) if chain_cache is None else chain_cache
+        )
+        self.frontier_cache: MutableMapping = (
+            LRUCache(max_frontiers) if frontier_cache is None else frontier_cache
+        )
+        #: (left token, right token, quantized cap) -> combined frontier
+        self.comb_cache: MutableMapping = LRUCache(max_frontiers)
+        self.pick_cache: MutableMapping = (
+            LRUCache(max_picks) if pick_cache is None else pick_cache
+        )
+        #: (leaf token, plan key, spends) -> (picks, total, spent)
+        self.leaf_sol_cache: MutableMapping = LRUCache(max_leaf_solutions)
+        self.plan_cache: MutableMapping = (
+            LRUCache(max_plans) if plan_cache is None else plan_cache
+        )
+        self._tokens: dict = {}
+        self._next_token = itertools.count(1)
+
+    def token(self, content) -> int:
+        """Intern hashable content to a small process-unique int.
+
+        Tokens are never reused (the counter outlives table resets), so a
+        stale cache entry keyed by an old token can never collide with new
+        content — it just ages out of its LRU."""
+        t = self._tokens.get(content)
+        if t is None:
+            if len(self._tokens) > (1 << 20):
+                self._tokens.clear()
+            t = next(self._next_token)
+            self._tokens[content] = t
+        return t
+
+    def cache_sizes(self) -> dict[str, int]:
+        return {
+            "curves": len(self.curve_cache),
+            "frontiers": len(self.frontier_cache),
+            "combines": len(self.comb_cache),
+            "picks": len(self.pick_cache),
+            "leaf_solutions": len(self.leaf_sol_cache),
+            "plans": len(self.plan_cache),
+        }
+
+    def clear(self) -> None:
+        for c in (
+            self.curve_cache,
+            self.chain_cache,
+            self.frontier_cache,
+            self.comb_cache,
+            self.pick_cache,
+            self.leaf_sol_cache,
+            self.plan_cache,
+        ):
+            c.clear()
+        self._tokens.clear()
+
+
+class _CombNode:
+    """One node of the balanced frontier aggregation tree.
+
+    Wrapper nodes (``leaf`` set) adapt a child domain's frontier; internal
+    nodes hold a (max,+)-combined frontier with per-state (left, right)
+    spend splits for backtracking.  The tree shape is a deterministic
+    function of the child count (adjacent pairs, odd tail carried up), so
+    content-addressed memoization of each combine makes replacing one
+    dirty child cost O(log n_children) convolutions.
+    """
+
+    __slots__ = ("keys", "vals", "back_left", "back_right", "left", "right", "leaf")
+
+    def __init__(self, keys, vals, back_left=None, back_right=None,
+                 left=None, right=None, leaf=None):
+        self.keys: np.ndarray = keys
+        self.vals: np.ndarray = vals
+        self.back_left = back_left
+        self.back_right = back_right
+        self.left: _CombNode | None = left
+        self.right: _CombNode | None = right
+        self.leaf: "_SparseFrontier | None" = leaf
+
+
+class _SparseFrontier:
+    """A domain's value-vs-spend frontier with backtracking state.
+
+    ``keys``/``vals`` are the capped frontier (ascending quantized spends,
+    best value at each).  Leaves keep their plan/curves/stages for
+    unwinding; internal domains keep their children plus the aggregation
+    tree (``comb``) that combined them.  ``token`` is the content token
+    the parent's combine cache keys on.
+    """
+
+    __slots__ = (
+        "dom", "keys", "vals", "stages", "plan", "curves", "curve_keys",
+        "token", "comb", "children",
+    )
+
+    def __init__(self, dom, keys, vals, *, stages=None, plan=None,
+                 curves=None, curve_keys=None, token=None, comb=None,
+                 children=None):
+        self.dom: DomainGroups = dom
+        self.keys: np.ndarray = keys
+        self.vals: np.ndarray = vals
+        self.stages: list | None = stages
+        self.plan: _LeafPlan | None = plan
+        self.curves = curves
+        self.curve_keys = curve_keys
+        self.token: int | None = token
+        self.comb: _CombNode | None = comb
+        self.children: list["_SparseFrontier"] | None = children
+
+
+def _combine_frontiers(
+    subs: Sequence[_SparseFrontier], eff: float, state: HierState
+) -> tuple[_CombNode, int]:
+    """Fold child frontiers through the balanced aggregation tree under
+    cap ``eff``.  Returns the root node and its content token."""
+    nodes = [
+        _CombNode(keys=f.keys, vals=f.vals, leaf=f) for f in subs
+    ]
+    tokens = [f.token for f in subs]
+    effk = _qkey(eff)
+    while len(nodes) > 1:
+        nxt: list[_CombNode] = []
+        ntok: list[int] = []
+        for i in range(0, len(nodes) - 1, 2):
+            key = (tokens[i], tokens[i + 1], effk)
+            hit = state.comb_cache.get(key)
+            if hit is None:
+                hit = _maxplus_pair(
+                    nodes[i].keys, nodes[i].vals,
+                    nodes[i + 1].keys, nodes[i + 1].vals, eff,
+                )
+                state.comb_cache[key] = hit
+            nxt.append(
+                _CombNode(
+                    keys=hit[0], vals=hit[1], back_left=hit[2],
+                    back_right=hit[3], left=nodes[i], right=nodes[i + 1],
+                )
+            )
+            ntok.append(state.token(("comb",) + key))
+        if len(nodes) % 2:
+            nxt.append(nodes[-1])
+            ntok.append(tokens[-1])
+        nodes, tokens = nxt, ntok
+    return nodes[0], tokens[0]
+
+
+def _comb_spends(
+    node: _CombNode, u: float, out: list[tuple[_SparseFrontier, float]]
+) -> None:
+    """Split a chosen spend ``u`` down the aggregation tree into per-child
+    (frontier, spend) pairs in original child order."""
+    if node.leaf is not None:
+        out.append((node.leaf, u))
+        return
+    i = int(np.searchsorted(node.keys, u))
+    _comb_spends(node.left, float(node.back_left[i]), out)
+    _comb_spends(node.right, float(node.back_right[i]), out)
+
+
+def _domain_eff(dom: DomainGroups, budget: float) -> float:
+    """Effective spend cap of a domain under its parent's budget — the one
+    clamping rule shared by the frontier builders and the batched-leaf
+    pre-walks (divergence here would silently misalign their grids)."""
+    eff = min(float(dom.cap), float(budget))
+    return eff if eff > 0.0 else 0.0
+
+
+def _prime_leaf_frontiers(
+    root: DomainGroups, budget: float, state: HierState
+) -> None:
+    """Batched single-dispatch solve of every *dirty* leaf DP.
+
+    Walks the domain tree computing each leaf's effective cap, collects
+    the leaves whose frontier isn't cached, and solves them all through
+    :func:`_superstage_dp_batch` — priming the frontier cache so the
+    subsequent recursive build is all hits.  A steady-state round with k
+    dirty leaves pays one batched dispatch instead of k per-leaf stage
+    loops.  No-op (falling back to the per-leaf path) on non-lattice
+    instances.
+    """
+    jobs: list[tuple[_LeafPlan, float, tuple]] = []
+    seen: set = set()
+
+    def walk(dom: DomainGroups, b: float) -> None:
+        eff = _domain_eff(dom, b)
+        if dom.children:
+            for c in dom.children:
+                walk(c, eff)
+            return
+        if not dom.groups:
+            return
+        plan = _leaf_plan(dom.groups, state.plan_cache)
+        key = (plan.layout, _qkey(eff))
+        if key in seen or state.frontier_cache.get(key) is not None:
+            return
+        seen.add(key)
+        jobs.append((plan, eff, key))
+
+    walk(root, float(budget))
+    if len(jobs) < 2:
+        return
+    prepared = []
+    for plan, eff, key in jobs:
+        curves_, curve_keys = _class_curves(
+            plan.classes, eff, state.curve_cache, state.chain_cache
+        )
+        prepared.append((plan, eff, key, curves_, curve_keys))
+    batch = _superstage_dp_batch(
+        [
+            ([(c.keys, c.vals) for c in curves_], eff)
+            for _, eff, _, curves_, _ in prepared
+        ]
+    )
+    if batch is None:
+        return
+    for (plan, eff, key, curves_, curve_keys), (dp_keys, dp_vals, stages) in zip(
+        prepared, batch
+    ):
+        state.frontier_cache[key] = (curves_, curve_keys, dp_keys, dp_vals, stages)
+
+
+def _sparse_frontier(
+    dom: DomainGroups, budget: float, state: HierState
+) -> _SparseFrontier:
+    """Capped frontier of one domain: its best-value-per-spend staircase,
+    restricted to spends <= min(domain cap, parent budget).
+
+    A leaf's frontier is the class super-stage DP of its groups — the same
+    arrays ``solve_sparse_grouped`` ends on, so a single root domain with
+    cap >= budget reproduces the flat grouped solve bit-for-bit.  An
+    internal domain folds its children's frontiers through the balanced
+    aggregation tree under its own cap (the "upper-level DP").  Leaf DPs
+    memoize by (per-class digest+multiplicity layout, quantized budget);
+    tree combines by the child content tokens — both in ``state``.
+    """
+    eff = _domain_eff(dom, budget)
+    if dom.children:
+        subs = [_sparse_frontier(c, eff, state) for c in dom.children]
+        comb, token = _combine_frontiers(subs, eff, state)
+        return _SparseFrontier(
+            dom, comb.keys, comb.vals, token=token, comb=comb, children=subs
+        )
+    plan = _leaf_plan(dom.groups, state.plan_cache)
+    key = (plan.layout, _qkey(eff))
+    hit = state.frontier_cache.get(key)
+    if hit is None:
+        curves_, curve_keys = _class_curves(
+            plan.classes, eff, state.curve_cache, state.chain_cache
+        )
+        dp_keys, dp_vals, stages = _superstage_dp(
+            [(c.keys, c.vals) for c in curves_], eff
+        )
+        hit = (curves_, curve_keys, dp_keys, dp_vals, stages)
+        state.frontier_cache[key] = hit  # type: ignore[index]
+    curves_, curve_keys, dp_keys, dp_vals, stages = hit
+    return _SparseFrontier(
+        dom, dp_keys, dp_vals, stages=stages, plan=plan, curves=curves_,
+        curve_keys=curve_keys, token=state.token(("leaf", key)),
+    )
+
+
+def _backtrack_frontier(
+    f: _SparseFrontier,
+    u: float,
+    state: HierState,
+    picks: dict[str, tuple[float, float, tuple[float, float]]],
+    domain_spent: dict[str, float],
+    leaf_totals: list[tuple[float, float]],
+) -> None:
+    """Walk a chosen spend ``u`` down the frontier tree to receiver picks.
+
+    Leaf solutions (picks + canonically-accumulated totals) memoize by
+    (leaf content token, membership plan key, per-class spends): an
+    unchanged leaf whose budget share didn't move contributes its cached
+    dict without re-unwinding a single class.
+    """
+    domain_spent[f.dom.name] = u
+    if f.children is not None:
+        pairs: list[tuple[_SparseFrontier, float]] = []
+        _comb_spends(f.comb, u, pairs)
+        for sub, s in pairs:
+            _backtrack_frontier(sub, s, state, picks, domain_spent, leaf_totals)
+        return
+    spends = _backtrack_superstages(f.stages, u)
+    skey = None
+    if f.plan.key is not None:
+        skey = (f.token, f.plan.key, tuple(spends))
+        hit = state.leaf_sol_cache.get(skey)
+        if hit is not None:
+            picks.update(hit[0])
+            leaf_totals.append((hit[1], hit[2]))
+            return
+    lp, lt, ls = _assemble_plan(
+        f.plan, f.curve_keys, f.curves, spends, state.pick_cache
+    )
+    if skey is not None:
+        state.leaf_sol_cache[skey] = (lp, lt, ls)
+    picks.update(lp)
+    leaf_totals.append((lt, ls))
+
+
+def solve_hierarchical(
+    root: DomainGroups,
+    budget: float,
+    *,
+    solver: str = "sparse",
+    unit: float = 1.0,
+    curve_cache: MutableMapping | None = None,
+    frontier_cache: MutableMapping | None = None,
+    state: HierState | None = None,
+    device: str | torch.device | None = None,
+) -> MCKPSolution:
+    """Topology-aware MCKP over an arbitrary-depth power-domain tree.
+
+    Per-domain group-collapsed aggregate tables become capped value-vs-spend
+    frontiers; the upper-level DP folds sibling frontiers through a
+    balanced aggregation tree *recursively at every internal domain* to
+    split each parent's budget subject to every domain's local cap (site
+    → row → PDU → ... → leaf), then backtracks down to the per-receiver
+    picks.  Every domain's spend is <= its cap by construction, and with a
+    single root domain whose cap >= the cluster budget the result is
+    **bit-for-bit** ``solve_sparse_grouped`` (``solver='sparse'``) /
+    ``solve_dense_jax_grouped`` (``solver='jax'`` / ``'pallas'``, on
+    ``device``: None = the CUDA card) — as the reference certifies for
+    itself in tests/test_hier_alloc.py.
+
+    Passing a persistent :class:`HierState` makes warm re-solves
+    incremental (O(what changed) — see the class docstring) while staying
+    bit-for-bit equal to a from-scratch call; ``curve_cache`` /
+    ``frontier_cache`` remain accepted as standalone warm mappings.
+
+    Returns a solution whose ``domain_spent`` maps each domain name to the
+    watts spent inside it.
+    """
+    if solver == "sparse":
+        st = state if state is not None else HierState(curve_cache, frontier_cache)
+        _prime_leaf_frontiers(root, float(budget), st)
+        f = _sparse_frontier(root, float(budget), st)
+        u = float(f.keys[int(np.argmax(f.vals))])
+        picks: dict[str, tuple[float, float, tuple[float, float]]] = {}
+        domain_spent: dict[str, float] = {}
+        leaf_totals: list[tuple[float, float]] = []
+        _backtrack_frontier(f, u, st, picks, domain_spent, leaf_totals)
+        total = 0.0
+        spent = 0.0
+        for lt, ls in leaf_totals:
+            total += lt
+            spent += ls
+        return MCKPSolution(
+            total_value=total, spent=spent, picks=picks,
+            domain_spent=domain_spent,
+        )
+    if solver in ("jax", "pallas"):
+        return _solve_hier_dense(
+            root, float(budget), unit=unit, backend=solver,
+            device=resolve_device(device),
+        )
+    raise ValueError(f"unknown hierarchical solver {solver!r}")
+
+
+
+# ---------------------------------------------------------------------------
+# Fused device-resident sparse solve (DESIGN.md §14/§16/§17)
 # ---------------------------------------------------------------------------
 
 #: fused-path grid bound: fall back to host when the padded global spend
@@ -1044,12 +1486,6 @@ _FUSED_MAX_NB = 4096
 
 #: per-stage option-count bound for the padded [S, L, K] device banks
 _FUSED_MAX_OPTS = 1024
-
-HIER_FUSED_NOT_PORTED = (
-    "the hierarchical fused kinds ('tree', 'leaf_root') are not ported yet: "
-    "ROADMAP.md, queue 1, item 3"
-)
-
 
 def _pow2_at_least(n: int, floor: int) -> int:
     p = floor
@@ -1185,6 +1621,100 @@ def _fused_leaf_rows(
     return g_l, tmax_host, rows, all_zero
 
 
+@functools.cache
+def _tree_ops(
+    tree_sig: tuple | int, first_out: int
+) -> tuple[tuple, dict, dict, tuple]:
+    """Lower a nested domain signature to its static combine-op list.
+
+    ``tree_sig``: leaf = spec row index; internal domain =
+    ``("d", dom_idx, (child_sigs...))`` with ``dom_idx`` post-order.
+    Rows ``0..L-1`` are the DFS leaves; each pairwise combine allocates
+    the next row id from ``first_out``.  Per domain the ops replay
+    ``_combine_frontiers``' balanced order exactly (adjacent pairs, odd
+    tail carried up; a single-child domain emits no op — its cap already
+    flows through the child's cascaded eff).  Returns ``(ops, depth,
+    leaves_under, dom_rows)``: ops as ``(left_row, right_row, out_row,
+    dom_idx)`` in topological order, per-row combine depth and leaf
+    count, and each internal domain's result row.
+    """
+    ops: list[tuple[int, int, int, int]] = []
+    depth: dict[int, int] = {}
+    leaves_under: dict[int, int] = {}
+    nxt = [first_out]
+    dom_rows: dict[int, int] = {}
+
+    def build(sig):
+        if isinstance(sig, int):
+            depth.setdefault(sig, 0)
+            leaves_under.setdefault(sig, 1)
+            return sig
+        _tag, dom_idx, children = sig
+        rows = [build(c) for c in children]
+        while len(rows) > 1:
+            merged = []
+            for i in range(0, len(rows) - 1, 2):
+                left, right = rows[i], rows[i + 1]
+                out = nxt[0]
+                nxt[0] += 1
+                depth[out] = 1 + max(depth[left], depth[right])
+                leaves_under[out] = leaves_under[left] + leaves_under[right]
+                ops.append((left, right, out, dom_idx))
+                merged.append(out)
+            if len(rows) % 2:
+                merged.append(rows[-1])
+            rows = merged
+        dom_rows[dom_idx] = rows[0]
+        return rows[0]
+
+    build(tree_sig)
+    # renumber output rows into wave (depth) order: the round's row buffer
+    # holds each wave's outputs contiguously, so a row's id must equal its
+    # position — creation order interleaves domains and would not (the
+    # stable sort keeps creation order within a depth)
+    order = sorted(range(len(ops)), key=lambda i: depth[ops[i][2]])
+    remap = {ops[i][2]: first_out + pos for pos, i in enumerate(order)}
+    ops_w = tuple(
+        (
+            remap.get(ops[i][0], ops[i][0]),
+            remap.get(ops[i][1], ops[i][1]),
+            remap[ops[i][2]],
+            ops[i][3],
+        )
+        for i in order
+    )
+    return (
+        ops_w,
+        {remap.get(r, r): d for r, d in depth.items()},
+        {remap.get(r, r): v for r, v in leaves_under.items()},
+        tuple(remap.get(dom_rows[i], dom_rows[i]) for i in range(len(dom_rows))),
+    )
+
+
+def _tree_waves(
+    ops: tuple, depth: dict, leaves_under: dict, nb: int, nbt: int
+) -> tuple:
+    """Group combine ops into depth waves, one stage-kernel launch each.
+
+    Ops at the same combine depth are independent (inputs come from
+    strictly shallower rows), so each wave is one row-batched (max,+)
+    launch.  Per wave, the enumerated right-offset count is the static
+    support bound of its right inputs: ``min(nbt, max_right_leaves *
+    (nb - 1) + 1)`` — offsets beyond a subtree's reachable spend are
+    provably ``-inf`` and dropping them is bitwise-neutral.
+    """
+    by_depth: dict[int, list] = {}
+    for op in ops:
+        by_depth.setdefault(depth[op[2]], []).append(op)
+    return tuple(
+        (
+            min(nbt, max(leaves_under[op[1]] for op in wave) * (nb - 1) + 1),
+            tuple(wave),
+        )
+        for _d, wave in sorted(by_depth.items())
+    )
+
+
 def _fused_leaf_scan(
     kb: torch.Tensor, vb: torch.Tensor, tmax_leaf: torch.Tensor, nb: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1200,29 +1730,79 @@ def _fused_leaf_scan(
     return kops.maxplus_stages_batched(dp, kb, vb, tmax_leaf)
 
 
+def _tree_combine(
+    dp: torch.Tensor, waves: tuple, tcuts: np.ndarray, nbt: int, n_rows: int
+) -> tuple[torch.Tensor, list]:
+    """The frontier aggregation waves on the device: the image of
+    ``_combine_frontiers`` applying ``_maxplus_pair(..., eff)`` at every
+    pair of an arbitrary-depth domain tree.
+
+    Each wave is one launch of the sparse-option stage kernel
+    (``kops.maxplus_stages_batched`` with S = 1) over the wave's left rows,
+    with the dense descending offset row ``k_level - 1 .. 0`` as options and
+    the right rows' first ``k_level`` states, reversed, as values (the
+    ascending-j scan over descending offsets is the host's smallest
+    a-spend tie-break), masked at each owning domain's cap cut through the
+    kernel's ``tmax``.  ``buf`` [n_rows, NBT] holds the leaf rows, padded
+    with -inf from NB to NBT, then each wave's outputs in append order.
+    Returns (buf, the waves' [n_ops, NBT] int32 arg tables)."""
+    L, nb = dp.shape
+    device = dp.device
+    # every wave's (left row, right row, cap cut) in one host -> device copy
+    rows = torch.tensor(
+        [[op[0], op[1], int(tcuts[op[3]])] for _, wave in waves for op in wave],
+        dtype=torch.int64,
+    ).to(device)
+    buf = torch.empty((n_rows, nbt), dtype=dp.dtype, device=device)
+    buf[:L, :nb] = dp
+    buf[:L, nb:] = -torch.inf
+    args = []
+    at = 0
+    for k_level, wave in waves:
+        n = len(wave)
+        li, ri, tc = rows[at : at + n].T
+        ckb = torch.arange(k_level - 1, -1, -1, dtype=torch.int32, device=device)
+        ckb = ckb.expand(1, n, k_level).contiguous()
+        cvb = torch.flip(buf[ri, :k_level], (1,))[None]
+        out, arg = kops.maxplus_stages_batched(buf[li], ckb, cvb, tc.to(torch.int32))
+        buf[wave[0][2] : wave[0][2] + n] = out
+        args.append(arg[0])
+        at += n
+    return buf, args
+
+
 def _fused_run(
     specs: list[tuple],
     kind: str,
+    tree_sig: tuple | int | None,
+    doms: tuple,
     *,
     pick_cache: MutableMapping | None,
     fstate: FusedState,
     device: torch.device,
+    st: "HierState | None" = None,
 ) -> MCKPSolution | None:
     """One fused device round over prepared leaf specs.
 
-    ``specs``: per-leaf (name, eff, plan, curves, curve_keys).  Only
-    ``kind='flat'`` (the grouped solve: one leaf, no domain accounting) is
-    ported; ``'tree'`` and ``'leaf_root'`` raise.
+    ``specs``: per-leaf (name, eff, plan, curves, curve_keys) in DFS
+    order.  ``kind``: 'flat' (grouped solve, no domain accounting),
+    'leaf_root' (hierarchical root that is itself a leaf) or 'tree'
+    (arbitrary-depth domain tree: ``tree_sig`` is the nested signature
+    over spec indices and ``doms`` the post-order (name, eff) list of
+    internal domains, root last).
 
-    Structure churn never routes to the host (DESIGN.md §17): content
-    changes patch rows in place under the unchanged capacity-slack layout,
-    and layout changes repack the resident banks by device-side
-    compaction.  Returns None only for off-lattice keys, oversized grids,
-    empty rounds or an infeasible root; ``fstate.stats['fallback_reason']``
-    records which.  A kernel build or launch error is never caught here.
+    The device work is one launch of the stage kernel for the leaf scan
+    and, for the tree kind, one a combine wave; one device -> host copy
+    brings the root state, the backpointer tables and the offsets bank
+    back, and the host walks them (int32, bitwise the reference's device
+    gathers).  Structure churn never routes to the host (DESIGN.md §17):
+    content changes patch rows in place under the unchanged
+    capacity-slack layout, and layout changes (leaf set, pad tiers,
+    topology edits) repack the resident banks by device-side compaction.
+    Returns None only for off-lattice keys, oversized grids, empty rounds
+    or an infeasible root; ``fstate.stats['fallback_reason']`` records
+    which.  A kernel build or launch error is never caught here.
     """
-    if kind != "flat":
-        raise NotImplementedError(HIER_FUSED_NOT_PORTED)
     stats = fstate.stats
     seg = fstate.last_segments = {
         "prep_s": 0.0, "patch_s": 0.0, "compact_s": 0.0,
@@ -1273,12 +1853,45 @@ def _fused_run(
             for kb, _, _, _ in rows:
                 k_max = max(k_max, len(kb))
 
+    use_tree = kind == "tree"
+    tcuts = np.zeros(len(doms), dtype=np.int32)
+    nbt_needed = nb_needed
+    ops: tuple = ()
+    depths: dict = {}
+    leaves_under: dict = {}
+    dom_rows: tuple = ()
+    if use_tree:
+        # the exact _maxplus_pair prune per internal domain: keep combined
+        # states whose reconstructed float64 key is <= eff + 1e-9
+        cut_by_eff: dict[float, int] = {}
+        for i, (_dn, eff_d) in enumerate(doms):
+            c = cut_by_eff.get(eff_d)
+            if c is None:
+                ub = int((eff_d + 1e-9) * 1e6 // g) + 1
+                if ub + 1 > 4 * _FUSED_MAX_NB:
+                    stats["fallbacks"] += 1
+                    stats["fallback_reason"] = "grid_overflow"
+                    return None
+                ks = (np.arange(ub + 2, dtype=np.int64) * g).astype(np.float64) * 1e-6
+                c = int(np.flatnonzero(ks <= eff_d + 1e-9).max())
+                cut_by_eff[eff_d] = c
+            tcuts[i] = c
+        # one device: the leaf rows are not padded to a shard multiple
+        ops, depths, leaves_under, dom_rows = _tree_ops(tree_sig, L)
+        # the tree grid only needs the reachable spend-sum support: every
+        # state beyond min(cap cut, sum of input supports) is -inf
+        support = {li: int(tmax_dev[li]) for li in range(L)}
+        for l_row, r_row, o_row, d in ops:
+            support[o_row] = min(support[l_row] + support[r_row], int(tcuts[d]))
+        nbt_needed = max(nb_needed, max(support.values()) + 1)
+
     if k_max > _FUSED_MAX_OPTS:
         stats["fallbacks"] += 1
         stats["fallback_reason"] = "grid_overflow"
         return None
     nb_pad = _pow2_at_least(nb_needed, 16)
-    if nb_pad > _FUSED_MAX_NB:
+    nbt_pad = _pow2_at_least(nbt_needed, 16) if use_tree else nb_pad
+    if max(nb_pad, nbt_pad) > _FUSED_MAX_NB:
         stats["fallbacks"] += 1
         stats["fallback_reason"] = "grid_overflow"
         return None
@@ -1286,23 +1899,30 @@ def _fused_run(
     k_pad = _pow2_at_least(max(k_max, 1), 4)
 
     names = tuple(name for name, *_ in specs)
+    dom_names = tuple(dn for dn, _ in doms)
     # sticky pads: padding up is always exact (identity stages, -inf
     # option tails, masked grid tops), so never shrink the resident tiers
     # while the solver kind matches — churn across a pow2 boundary must
     # not flap between compactions
     if fstate.shape is not None and fstate.shape[0] == kind:
-        _pk, _pL, ps, pkk, pnb = fstate.shape[:5]
+        _pk, _pL, ps, pkk, pnb, pnbt = fstate.shape[:6]
         s_pad = max(s_pad, ps)
         k_pad = max(k_pad, pkk)
         nb_pad = max(nb_pad, pnb)
-    # capacity-slack layout signature (DESIGN.md §17): kind, leaf count
-    # and padded tiers.  The pitch g, leaf names and option rows are
-    # content, moved by the delta-patch or compaction path; row
-    # signatures fold in the leaf->global lattice multiplier, so a pitch
-    # change re-uploads exactly the rows whose device image it moved.
-    layout = (kind, L, s_pad, k_pad, nb_pad)
+        nbt_pad = max(nbt_pad, pnbt) if use_tree else nb_pad
+    nbt_pad = max(nbt_pad, nb_pad)
+    # capacity-slack layout signature (DESIGN.md §17): kind, leaf count,
+    # padded tiers and the static tree schedule.  The pitch g, leaf names
+    # and option rows are content, moved by the delta-patch or compaction
+    # path; row signatures fold in the leaf->global lattice multiplier, so
+    # a pitch change re-uploads exactly the rows whose device image it
+    # moved.
+    layout = (kind, L, s_pad, k_pad, nb_pad, nbt_pad, tree_sig)
     stats["slack_utilization"] = max(
-        s_max / s_pad, k_max / k_pad, nb_needed / nb_pad
+        s_max / s_pad,
+        k_max / k_pad,
+        nb_needed / nb_pad,
+        (nbt_needed / nbt_pad) if use_tree else 0.0,
     )
 
     bank_shape = (s_pad, L, k_pad)
@@ -1315,8 +1935,8 @@ def _fused_run(
         or len(set(names)) != len(names)
         or len(set(fstate.names or ())) != len(fstate.names or ())
     ):
-        # unmappable resident state (ambiguous leaf identities): cold host
-        # rebuild — still a fused round
+        # unmappable resident state (different solver kind, ambiguous leaf
+        # identities): cold host rebuild — still a fused round
         rebuild, compact = True, False
 
     def upload_rows(entries):
@@ -1454,14 +2074,25 @@ def _fused_run(
     dp, wins = _fused_leaf_scan(
         kb_dev, vb_dev, torch.from_numpy(tmax_dev).to(device), nb_pad
     )
-    # flat round: the root is leaf row 0; first maximum taken explicitly
-    root_vec = dp[0]
+    waves: tuple = ()
+    wave_args: list = []
+    root_row = 0
+    if use_tree:
+        waves = _tree_waves(ops, depths, leaves_under, nb_pad, nbt_pad)
+        root_row = dom_rows[-1]
+        buf, wave_args = _tree_combine(dp, waves, tcuts, nbt_pad, L + len(ops))
+        root_vec = buf[root_row]
+    else:
+        root_vec = dp[0]
+    # first maximum taken explicitly
     root_val = root_vec.max()
     t_root_dev = torch.nonzero(root_vec == root_val)[0, 0]
-    # one device -> host copy: root, backpointers and the offsets bank
-    # the backtrack walks (int32, [S, L, NB] + [S, L, K])
+    # one device -> host copy: the root, the leaf and wave backpointers and
+    # the offsets bank the backtrack walks (int32)
     head = torch.stack([t_root_dev.to(torch.int32)])
-    host = torch.cat([head, wins.reshape(-1), kb_dev.reshape(-1)]).cpu().numpy()
+    parts = [head, wins.reshape(-1), kb_dev.reshape(-1)]
+    parts += [a.reshape(-1) for a in wave_args]
+    host = torch.cat(parts).cpu().numpy()
     root_val = float(root_val)
     stats["device_s"] += time.perf_counter() - t0
     seg["dispatch_s"] += time.perf_counter() - t0
@@ -1475,12 +2106,30 @@ def _fused_run(
         return None
     stats["fallback_reason"] = ""
     t_root = int(host[0])
-    n_wins = wins.numel()
-    wins_h = host[1 : 1 + n_wins].reshape(wins.shape)
-    kb_h = host[1 + n_wins :].reshape(kb_dev.shape)
+    at = 1
+    wins_h = host[at : at + wins.numel()].reshape(wins.shape)
+    at += wins.numel()
+    kb_h = host[at : at + kb_dev.numel()].reshape(kb_dev.shape)
+    at += kb_dev.numel()
+    # tree backtrack: split t down the static schedule in reverse wave
+    # order (an op's output t is known before its inputs are needed)
+    t_of = {root_row: t_root}
+    wave_h = []
+    for (k_level, wave) in waves:
+        n = len(wave) * nbt_pad
+        wave_h.append(host[at : at + n].reshape(len(wave), nbt_pad))
+        at += n
+    for (k_level, wave), win in zip(reversed(waves), reversed(wave_h)):
+        for i in range(len(wave) - 1, -1, -1):
+            l_row, r_row, o_row, _d = wave[i]
+            t_out = t_of[o_row]
+            t_r = k_level - 1 - int(win[i, t_out])
+            t_of[r_row] = t_r
+            t_of[l_row] = t_out - t_r
+    t_leaf = np.array([t_of[i] for i in range(L)], dtype=np.int32)
+    t_dom = [t_of[r] for r in dom_rows]
     # leaf backtrack through the backpointer tables, stage by stage —
     # _IntStages.backtrack for every leaf at once (int32, bitwise)
-    t_leaf = np.full(L, t_root, dtype=np.int32)
     js = np.empty((L, wins.shape[0]), dtype=np.int32)
     rows_i = np.arange(L)
     t = t_leaf.copy()
@@ -1489,15 +2138,24 @@ def _fused_run(
         js[:, s] = j
         t = (t - kb_h[s, rows_i, j]).astype(np.int32)
 
-    leaf_meta = tuple((None, spec[2].key) for spec in specs)
+    leaf_meta = []
+    for name, eff, plan_, curves_, curve_keys in specs:
+        tok = (
+            st.token(("leaf", (plan_.layout, _qkey(eff))))
+            if st is not None
+            else None
+        )
+        leaf_meta.append((tok, plan_.key))
+
     # layout does not pin pitch / leaf names / class layouts (they are
     # patchable content), so the short-circuit key carries them explicitly
     dec_key = (
         layout,
         g,
         names,
+        dom_names,
         tuple(tuple(rs) for rs in fstate.row_sigs),
-        leaf_meta,
+        tuple(leaf_meta),
         t_root,
         t_leaf.tobytes(),
         js.tobytes(),
@@ -1511,18 +2169,48 @@ def _fused_run(
         return fstate.last_solution
 
     picks: dict[str, tuple[float, float, tuple[float, float]]] = {}
-    total = 0.0
-    spent = 0.0
-    for li, (name, eff, plan, curves_, curve_keys) in enumerate(specs):
+    domain_spent: dict[str, float] | None = (
+        {} if kind in ("tree", "leaf_root") else None
+    )
+    if use_tree:
+        # per-internal-domain spends off the backtrack: the float64(t * g)
+        # * 1e-6 reconstruction is the host frontier-key round trip, so the
+        # values are bitwise _backtrack_frontier's
+        for i, (dname, _de) in enumerate(doms):
+            domain_spent[dname] = float(np.float64(int(t_dom[i]) * g) * 1e-6)
+    leaf_totals: list[tuple[float, float]] = []
+    for li, ((name, eff, plan_, curves_, curve_keys), (tok, _pk)) in enumerate(
+        zip(specs, leaf_meta)
+    ):
+        u = float(np.float64(int(t_leaf[li]) * g) * 1e-6)
+        if domain_spent is not None:
+            domain_spent[name] = u
         spends = [
             float(fstate.keys_desc[li][s][int(js[li, s])])
-            for s in range(len(plan.classes))
+            for s in range(len(plan_.classes))
         ]
-        lp, lt, ls = _assemble_plan(plan, curve_keys, curves_, spends, pick_cache)
+        skey = None
+        if st is not None and plan_.key is not None:
+            skey = (tok, plan_.key, tuple(spends))
+            hit = st.leaf_sol_cache.get(skey)
+            if hit is not None:
+                picks.update(hit[0])
+                leaf_totals.append((hit[1], hit[2]))
+                continue
+        lp, lt, ls = _assemble_plan(plan_, curve_keys, curves_, spends, pick_cache)
+        if skey is not None:
+            st.leaf_sol_cache[skey] = (lp, lt, ls)
         picks.update(lp)
+        leaf_totals.append((lt, ls))
+
+    total = 0.0
+    spent = 0.0
+    for lt, ls in leaf_totals:
         total += lt
         spent += ls
-    sol = MCKPSolution(total_value=total, spent=spent, picks=picks)
+    sol = MCKPSolution(
+        total_value=total, spent=spent, picks=picks, domain_spent=domain_spent
+    )
     fstate.last_key = dec_key
     fstate.last_solution = sol
     seg["assembly_s"] += time.perf_counter() - t_seg
@@ -1556,7 +2244,66 @@ def solve_grouped_fused(
     eff = float(budget)
     specs = [(None, eff, plan, curves_, curve_keys)]
     return _fused_run(
-        specs, "flat", pick_cache=pick_cache, fstate=fstate, device=device
+        specs, "flat", None, (), pick_cache=pick_cache, fstate=fstate,
+        device=device,
+    )
+
+
+def solve_hierarchical_fused(
+    root: DomainGroups,
+    budget: float,
+    *,
+    state: HierState,
+    fstate: FusedState,
+    device: str | torch.device | None = None,
+) -> MCKPSolution | None:
+    """Fused device-resident form of the N-level sparse
+    :func:`solve_hierarchical` on ``device`` (None = the CUDA card).
+
+    Walks the arbitrary-depth domain tree on the host exactly like
+    ``_sparse_frontier`` (same cascaded effective caps, plans and class
+    curves — shared caches), lowering it to a static combine schedule plus
+    a per-domain cap-cut vector, then runs the leaf scan and the combine
+    waves on the device (DESIGN.md §16).  Returns None to fall back to the
+    host path: off-lattice keys, oversized grids, empty rounds or an
+    infeasible root — ``fstate.stats['fallback_reason']`` says which.
+    Structure changes (new class layouts, membership churn, topology
+    edits) are served fused in the same round by row patching or
+    device-side compaction of the resident banks (DESIGN.md §17).
+    """
+    device = resolve_device(device)
+    eff_root = _domain_eff(root, float(budget))
+    if not root.children:
+        plan = _leaf_plan(root.groups, state.plan_cache)
+        curves_, curve_keys = _class_curves(
+            plan.classes, eff_root, state.curve_cache, state.chain_cache
+        )
+        specs = [(root.name, eff_root, plan, curves_, curve_keys)]
+        return _fused_run(
+            specs, "leaf_root", None, (),
+            pick_cache=state.pick_cache, fstate=fstate, device=device, st=state,
+        )
+
+    specs = []
+    doms: list[tuple[str, float]] = []
+
+    def walk(dom: DomainGroups, b: float):
+        eff = _domain_eff(dom, b)
+        if dom.children:
+            child_sigs = tuple(walk(c, eff) for c in dom.children)
+            doms.append((dom.name, eff))
+            return ("d", len(doms) - 1, child_sigs)
+        plan = _leaf_plan(dom.groups, state.plan_cache)
+        curves_, curve_keys = _class_curves(
+            plan.classes, eff, state.curve_cache, state.chain_cache
+        )
+        specs.append((dom.name, eff, plan, curves_, curve_keys))
+        return len(specs) - 1
+
+    tree_sig = walk(root, float(budget))
+    return _fused_run(
+        specs, "tree", tree_sig, tuple(doms),
+        pick_cache=state.pick_cache, fstate=fstate, device=device, st=state,
     )
 
 
@@ -1571,17 +2318,27 @@ def _stage_maxplus(
     """One (max,+) stage restricted to option costs.
 
     dp'[b] = max_j dp[b - cost_j] + value_j   (invalid b-cost_j masked)
-    Returns (dp', argmax_j) with first-max tie-breaking.
+    Returns (dp', argmax_j) with first-max tie-breaking.  The options are
+    scanned in ascending j with a strict ``>`` from (-inf, 0) — the first
+    maximizer, as the reference's argmax over its [k, b] candidate tile
+    picks it, with the same float64 sums — so no tile is built: the full
+    (max,+) convolution of the hierarchical dense path, whose options are
+    the whole budget grid, costs O(nb) memory.  Values are finite or
+    -inf (an unreachable spend): a NaN candidate, which the reference's
+    argmax would take for the maximum, cannot arise.
     """
     nb = dp.shape[0]
-    b = np.arange(nb)
-    idx = b[None, :] - costs_u[:, None]  # [k, nb]
-    cand = (
-        np.where(idx >= 0, dp[np.clip(idx, 0, nb - 1)], -np.inf)
-        + values[:, None]
-    )
-    a = np.argmax(cand, axis=0)
-    return cand[a, b], a.astype(np.int32)
+    out = np.full(nb, -np.inf)
+    arg = np.zeros(nb, dtype=np.int32)
+    for j, (c, v) in enumerate(zip(costs_u.tolist(), values.tolist())):
+        if c >= nb:
+            continue  # every candidate off the grid: -inf, never a maximizer
+        cand = dp[: nb - c] + v
+        tail = out[c:]
+        better = cand > tail
+        np.copyto(tail, cand, where=better)
+        np.copyto(arg[c:], j, where=better)
+    return out, arg
 
 
 def _unit_costs(table: OptionTable, unit: float, nb: int):
@@ -1788,6 +2545,209 @@ def solve_dense_jax_grouped(
     picks: dict[str, tuple[float, float, tuple[float, float]]] = {}
     spent = _gather_backtrack(layout, args, b, picks)
     return MCKPSolution(total_value=total, spent=spent, picks=picks)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical dense solve: leaf gather scans on a torch device, frontier
+# combines in numpy (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+
+class _DenseFrontier:
+    """Dense analogue of :class:`_SparseFrontier`: ``f[k]`` is the domain's
+    best value at spend ``k`` units (length min(cap, budget)//unit + 1 — the
+    cap restriction is the truncation).  Leaves keep their grouped dense
+    layout for backtracking; internal domains keep per-child conv argmaxes.
+    """
+
+    __slots__ = ("dom", "f", "args", "layout", "children")
+
+    def __init__(self, dom, f, args, layout=None, children=None):
+        self.dom: DomainGroups = dom
+        self.f: np.ndarray = f
+        self.args = args
+        self.layout = layout
+        self.children: list["_DenseFrontier"] | None = children
+
+
+def _conv_full(dp: np.ndarray, f: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Full (max,+) convolution: out[b] = max_k dp[b-k] + f[k].
+
+    ``f`` may be shorter than ``dp`` (a capped child frontier).  One
+    :func:`_stage_maxplus` stage whose "options" are every grid spend."""
+    return _stage_maxplus(dp, np.arange(len(f)), f)
+
+
+#: padded-element ceiling for the single-launch batched leaf solve
+#: (L x N x NB argmax tables); beyond it leaves solve one by one
+_BATCH_LEAF_MAX_ELEMS = 150_000_000
+
+
+def _scan_batched(f_banks: np.ndarray, gids: np.ndarray, backend: str, device):
+    """The batched leaf gather scan on ``device``: the float64 banks go to
+    float32 there (as the reference's jnp conversion with x64 off makes
+    them), then ``"pallas"`` runs ``ops.maxplus_scan_batched`` (kernel 2.2,
+    one launch a stage over every leaf row) and anything else the same scan
+    on the plain version.  Returns numpy (dp [L, NB], args [L, N, NB])."""
+    f = _curves_on(f_banks, device)
+    g = torch.as_tensor(gids, dtype=torch.int64, device=device)
+    if backend == "pallas":
+        dp, args = kops.maxplus_scan_batched(f, g)
+    else:
+        rows = torch.arange(f.shape[0], device=device)
+        dp = torch.zeros((f.shape[0], f.shape[2]), dtype=f.dtype, device=device)
+        steps = []
+        for i in range(g.shape[1]):
+            dp, arg = kref.maxplus_conv_batched(dp, f[rows, g[:, i]])
+            steps.append(arg)
+        args = torch.stack(steps, dim=1)
+    return dp.cpu().numpy(), args.cpu().numpy()
+
+
+def _batch_dense_leaves(
+    root: DomainGroups, budget: float, unit: float, backend: str, device
+) -> dict[int, tuple]:
+    """Single-launch-a-stage batched solve of every non-empty leaf's gather
+    scan.
+
+    Collects each leaf's (groups, eff) pair, densifies every leaf's class
+    curves on the widest leaf grid, pads class banks with the identity
+    curve and stage sequences with the identity class id, and runs one
+    batched scan for all leaves (:func:`_scan_batched`).  Per-leaf slices
+    are bitwise what the per-leaf scan returns: grid positions past a
+    leaf's own budget never influence positions inside it, and identity
+    stages are exact (+0.0) no-ops.  Returns {id(dom): (layout, dp_final,
+    args)}; empty when batching is inapplicable (single leaf, or padded
+    size beyond the ceiling).
+    """
+    leaves: list[tuple[DomainGroups, float]] = []
+
+    def walk(dom: DomainGroups, b: float) -> None:
+        eff = _domain_eff(dom, b)
+        if dom.children:
+            for c in dom.children:
+                walk(c, eff)
+        elif dom.groups:
+            leaves.append((dom, eff))
+
+    walk(root, float(budget))
+    if len(leaves) < 2:
+        return {}
+    nbs = [int(np.floor(eff / unit + 1e-9)) + 1 for _, eff in leaves]
+    nb_max = max(nbs)
+    layouts = [
+        _grouped_dense_layout(dom.groups, (nb_max - 1) * unit, unit)
+        for dom, _ in leaves
+    ]
+    g_max = max(lay[3].shape[0] for lay in layouts)
+    n_max = max(len(lay[1]) for lay in layouts)
+    if len(leaves) * n_max * nb_max > _BATCH_LEAF_MAX_ELEMS:
+        return {}
+    identity = np.full(nb_max, -np.inf)
+    identity[0] = 0.0
+    f_banks = np.empty((len(leaves), g_max + 1, nb_max), dtype=np.float64)
+    gids_pad = np.empty((len(leaves), n_max), dtype=np.int32)
+    for li, lay in enumerate(layouts):
+        _, stage_gids, _, f_groups, _ = lay
+        g_l, n_l = f_groups.shape[0], len(stage_gids)
+        f_banks[li, :g_l] = f_groups
+        f_banks[li, g_l:] = identity
+        gids_pad[li, :n_l] = stage_gids
+        gids_pad[li, n_l:] = g_l  # identity stage: dp + 0.0
+    dp_all, args_all = _scan_batched(f_banks, gids_pad, backend, device)
+    out: dict[int, tuple] = {}
+    for li, ((dom, _), lay, nb) in enumerate(zip(leaves, layouts, nbs)):
+        n_l = len(lay[1])
+        out[id(dom)] = (lay, dp_all[li, :nb], args_all[li, :n_l, :nb])
+    return out
+
+
+def _dense_frontier(
+    dom: DomainGroups,
+    budget: float,
+    unit: float,
+    backend: str,
+    device,
+    batched: dict[int, tuple] | None = None,
+) -> _DenseFrontier:
+    """Capped dense frontier of one domain on the ``unit``-watt grid.
+
+    A leaf runs the repeated-stage gather scan of its groups (the same
+    convolutions as ``solve_dense_jax_grouped``, so a single root with
+    cap >= budget is bitwise identical to the flat solve) — or picks up
+    its slice of the batched solve when one ran; an internal domain
+    convolves its children's truncated frontiers in numpy (float64).
+    """
+    eff = _domain_eff(dom, budget)
+    nb = int(np.floor(eff / unit + 1e-9)) + 1
+    if dom.children:
+        subs = [
+            _dense_frontier(c, eff, unit, backend, device, batched)
+            for c in dom.children
+        ]
+        dp = np.zeros(nb, dtype=np.float64)
+        args: list[np.ndarray] = []
+        for sub in subs:
+            dp, arg = _conv_full(dp, sub.f)
+            args.append(arg)
+        return _DenseFrontier(dom, dp, args, children=subs)
+    if not dom.groups:
+        # no receivers under this leaf: zero spend or nothing
+        f = np.full(nb, -np.inf)
+        f[0] = 0.0
+        return _DenseFrontier(dom, f, None, layout=None)
+    hit = batched.get(id(dom)) if batched else None
+    if hit is not None:
+        layout, dp_final, args_arr = hit
+        return _DenseFrontier(dom, dp_final, args_arr, layout=layout)
+    layout = _grouped_dense_layout(dom.groups, eff, unit)
+    _, stage_gids, _, f_groups, _ = layout
+    dp_final, args = _jax_dp_gather(f_groups, stage_gids, backend, device)
+    return _DenseFrontier(
+        dom, dp_final.cpu().numpy(), args.cpu().numpy(), layout=layout
+    )
+
+
+def _backtrack_dense(
+    fr: _DenseFrontier,
+    b: int,
+    picks: dict[str, tuple[float, float, tuple[float, float]]],
+    domain_spent: dict[str, float],
+) -> float:
+    """Walk ``b`` granted units down the frontier tree into picks; returns
+    the watts actually spent inside this domain."""
+    spent = 0.0
+    if fr.children is not None:
+        for i in range(len(fr.children) - 1, -1, -1):
+            k = int(fr.args[i][b])
+            spent += _backtrack_dense(fr.children[i], k, picks, domain_spent)
+            b -= k
+    elif fr.layout is not None:
+        spent = _gather_backtrack(fr.layout, fr.args, b, picks)
+    domain_spent[fr.dom.name] = spent
+    return spent
+
+
+def _solve_hier_dense(
+    root: DomainGroups,
+    budget: float,
+    *,
+    unit: float = 1.0,
+    backend: str = "jax",
+    device: torch.device,
+) -> MCKPSolution:
+    """Dense-grid hierarchical solve (see :func:`solve_hierarchical`)."""
+    batched = _batch_dense_leaves(root, budget, unit, backend, device)
+    fr = _dense_frontier(root, budget, unit, backend, device, batched)
+    b = int(np.argmax(fr.f))
+    total = float(fr.f[b])
+    picks: dict[str, tuple[float, float, tuple[float, float]]] = {}
+    domain_spent: dict[str, float] = {}
+    _backtrack_dense(fr, b, picks, domain_spent)
+    spent = sum(c for c, _, _ in picks.values())
+    return MCKPSolution(
+        total_value=total, spent=spent, picks=picks, domain_spent=domain_spent
+    )
 
 
 def _jax_dp_batch(f_mats: np.ndarray, backend: str, device: torch.device):

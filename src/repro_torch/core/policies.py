@@ -12,9 +12,8 @@ All policies share one signature and return a validated ``Allocation``:
    draw), never the performance surfaces.
 
 Ported: the baselines (uniform, DPS, MixedAdaptive), EcoShift on the
-sparse and dense solvers, the Oracle, the shared allocation assembly and
-the stateful-controller registry.  The hierarchical policy comes with
-ROADMAP.md, queue 1, item 3.
+sparse and dense solvers, the topology-aware EcoShift-Hier, the Oracle,
+the shared allocation assembly and the stateful-controller registry.
 """
 
 from __future__ import annotations
@@ -250,6 +249,101 @@ def ecoshift(
 
 
 # ---------------------------------------------------------------------------
+# EcoShift-Hier — topology-aware two-level MCKP (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+
+def domain_tree(topology, caps, groups_by_leaf) -> mckp.DomainGroups:
+    """Mirror a :class:`~repro_torch.core.topology.PowerTopology` into the
+    solver's :class:`~repro_torch.core.mckp.DomainGroups` tree.
+
+    ``caps`` is the per-domain extra-power headroom indexed by preorder
+    domain id; ``groups_by_leaf`` maps leaf domain id -> its receivers'
+    ``GroupedOptions``.  Shared by the pure policy and the controller.
+    """
+
+    def build(d):
+        i = topology.index[d.name]
+        if d.is_leaf:
+            return mckp.DomainGroups(
+                name=d.name,
+                cap=float(caps[i]),
+                groups=tuple(groups_by_leaf.get(i, ())),
+            )
+        return mckp.DomainGroups(
+            name=d.name,
+            cap=float(caps[i]),
+            children=tuple(build(c) for c in d.children),
+        )
+
+    return build(topology.root)
+
+
+def ecoshift_hier(
+    receivers: Sequence[AppSpec],
+    baselines: Mapping[str, tuple[float, float]],
+    budget: float,
+    system: SystemSpec,
+    surfaces: Mapping[str, PowerSurface],
+    *,
+    topology,
+    node_of: Mapping[str, int],
+    domain_extra: Mapping[str, float] | None = None,
+    solver: str = "sparse",
+    unit: float = 1.0,
+    device: str | torch.device | None = None,
+) -> Allocation:
+    """Topology-aware EcoShift: per-domain capped frontiers + upper-level DP.
+
+    ``topology`` is a :class:`~repro_torch.core.topology.PowerTopology`;
+    ``node_of`` maps each receiver instance name to its node id (the
+    topology's leaf ranges own node ids, not instance names).
+    ``domain_extra`` gives each domain's extra-power headroom in watts (by
+    domain name); when omitted it defaults to the round-0 cap minus the
+    baseline caps of the domain's receivers — the standalone
+    approximation.  The cluster engine always passes the real headroom (cap
+    minus all committed draw, donors and dead nodes included).  The dense
+    solvers (``"jax"`` / ``"pallas"``) run on ``device`` (None = the CUDA
+    card).
+
+    With a single root domain whose cap covers the budget this is
+    bit-for-bit the flat ``ecoshift(grouped=True)`` path.
+    """
+    order = as_receiver_order(receivers)
+    leaf_ids = topology.leaf_of([node_of[a.name] for a in order])
+
+    if domain_extra is not None:
+        caps = np.array(
+            [domain_extra[d.name] for d in topology.domains], dtype=np.float64
+        )
+    else:
+        committed = np.zeros(len(topology), dtype=np.float64)
+        for a, leaf in zip(order, leaf_ids):
+            c0, g0 = baselines[a.name]
+            committed[leaf] += c0 + g0
+        caps = topology.cap_at(0) - topology.aggregate_leaves(committed)
+        np.clip(caps, 0.0, None, out=caps)
+
+    groups_by_leaf: dict[int, list[mckp.GroupedOptions]] = {}
+    for leaf in np.unique(leaf_ids):
+        ii = np.flatnonzero(leaf_ids == leaf)
+        members = [order[i] for i in ii]
+        groups_by_leaf[int(leaf)] = mckp.collapse_receivers(
+            [a.name for a in members],
+            [surfaces[a.name] for a in members],
+            [baselines[a.name] for a in members],
+            lambda surf, base: curves.build_options(
+                "class", surf, base, system.grid, budget
+            ),
+        )
+    root = domain_tree(topology, caps, groups_by_leaf)
+    sol = mckp.solve_hierarchical(
+        root, budget, solver=solver, unit=unit, device=device
+    )
+    return allocation_from_solution(sol, baselines, budget, system.grid)
+
+
+# ---------------------------------------------------------------------------
 # Oracle — exhaustive search on true surfaces (§5.1, §6.3)
 # ---------------------------------------------------------------------------
 
@@ -290,6 +384,7 @@ POLICIES: dict[str, PolicyFn] = {
     "dps": dps,
     "mixed_adaptive": mixed_adaptive,
     "ecoshift": ecoshift,
+    "ecoshift_hier": ecoshift_hier,
     "oracle": oracle,
 }
 

@@ -3,6 +3,10 @@
  * a node table read from the JAX package's ``NodeTable`` columns (as
    numpy arrays) becomes the port's ``NodeTable``, so a port sim can
    continue a reference sim's cluster;
+ * a power-domain tree read from the JAX package's ``PowerTopology``
+   (each domain's ``name``, ``cap`` trace, ``nodes`` ranges and
+   ``children``, as plain Python attributes) becomes the port's
+   ``PowerTopology``, so one topology feeds both packages' sims;
  * behaviour classes read from the JAX package's ``GroupedOptions``
    (option ``costs``, ``values``, ``caps`` as numpy arrays, member names as
    strings) become the port's ``OptionTable``s and ``GroupedOptions``, so
@@ -30,6 +34,7 @@ from repro_torch.cluster.sim import NodeTable
 from repro_torch.core.ncf import NCFConfig, NCFPredictor
 from repro_torch.core.curves import OptionTable
 from repro_torch.core.mckp import GroupedOptions
+from repro_torch.core.topology import PowerDomain, PowerTopology
 
 #: column name -> dtype of every numeric NodeTable column
 COLUMNS = {
@@ -68,6 +73,25 @@ def node_table_from_columns(
         raise ValueError(f"caps must be [n, 2], got {t.caps.shape}")
     t.names = [t.strings[g] for g in t.name_gid]
     return t
+
+
+def topology_from_parts(topology) -> PowerTopology:
+    """The port's :class:`PowerTopology` from a reference one, read through
+    plain attributes: its ``root`` and ``n_nodes`` (the coverage check),
+    and each domain's ``name``, ``cap`` (a cap trace, passed on as is),
+    ``nodes`` (half-open ``(lo, hi)`` ranges, leaves only) and
+    ``children``.  Preorder, names and node ranges come out the same, so
+    domain ids agree between the packages."""
+
+    def build(d) -> PowerDomain:
+        return PowerDomain(
+            name=str(d.name),
+            cap=d.cap,
+            children=tuple(build(c) for c in d.children),
+            nodes=tuple((int(lo), int(hi)) for lo, hi in d.nodes),
+        )
+
+    return PowerTopology(build(topology.root), n_nodes=topology.n_nodes)
 
 
 def option_table_from_arrays(

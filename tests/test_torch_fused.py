@@ -271,12 +271,10 @@ def test_fused_short_circuit_and_segments():
         "prep_s", "patch_s", "compact_s", "dispatch_s", "backtrack_s", "assembly_s"
     }
     assert fstate.stats["rounds"] == 2 and fstate.stats["device_s"] > 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mckp._fused_run([], "tree", pick_cache=None, fstate=fstate,
-                        device=torch.device(CPU))
-    assert mckp._fused_run([], "flat", pick_cache=None, fstate=fstate,
-                           device=torch.device(CPU)) is None
-    assert fstate.stats["fallback_reason"] == "empty"
+    for kind in ("tree", "leaf_root", "flat"):
+        assert mckp._fused_run([], kind, None, (), pick_cache=None,
+                               fstate=fstate, device=torch.device(CPU)) is None
+        assert fstate.stats["fallback_reason"] == "empty"
     # no receivers at all is one leaf with no stages: an empty solution
     sol = mckp.solve_grouped_fused([], 10.0, fstate=fstate, device=CPU)
     assert sol is not None and sol.picks == {} and sol.spent == 0.0

@@ -381,7 +381,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "need = {'repro_torch.core.ncf', 'repro_torch.core.allocator', 'repro_torch.core.profiler',\n"
-        "        'repro_torch.train.optimizer', 'repro_torch.cluster.predictor'}\n"
+        "        'repro_torch.train.optimizer', 'repro_torch.cluster.predictor',\n"
+        "        'repro_torch.core.topology', 'repro_torch.cluster.budget'}\n"
         "missing = sorted(need - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 15 else 0)\n"
@@ -417,20 +418,23 @@ def test_unported_paths_raise(suites):
             make_controller("ecoshift", sysm, device=CPU, **kw)
     with pytest.raises(ValueError, match="unknown solver"):
         make_controller("ecoshift", sysm, solver="cuda", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ClusterSim.build(sysm, apps, surfs, n_nodes=4, device=CPU, topology=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Scenario.constant(2).with_faults(())
+    for call in (lambda: Scenario.constant(2).with_faults(()),
+                 lambda: Scenario.constant(2).with_fault_storm(seed=0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
+            call()
     ctrl = make_controller("ecoshift", sysm, solver="dense", device=CPU)
     assert isinstance(ctrl.config, tcontroller.ControllerConfig)
-    for call in (lambda: ctrl.notify_actuation(None), ctrl.snapshot,
-                 lambda: ctrl.allocate_hierarchical(None, 0.0, None),
-                 lambda: ctrl.set_budget_outlook([1.0])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mckp._fused_run([], "leaf_root", pick_cache=None,
-                        fstate=mckp.FusedState(), device=torch.device(CPU))
+    # the flat controller is not hierarchical: the engine never hands it a
+    # domain tree (the hierarchical path is ecoshift_hier's)
+    assert not getattr(ctrl, "supports_hierarchical", False)
+    hier = make_controller("ecoshift_hier", sysm, device=CPU)
+    for c in (ctrl, hier):
+        for call in (lambda: c.notify_actuation(None), c.snapshot,
+                     lambda: c.set_budget_outlook([1.0])):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
+                call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
+        make_controller("ecoshift_hier", sysm, device=CPU, horizon=3)
 
 
 # ---------------------------------------------------------------------------
