@@ -91,10 +91,28 @@ Phases, each of which exits non-zero on failure before the last line:
     LOGIT_REL_TOL, and the share of greedy tokens the two routes agree on;
     then the device busy share of one prefill and one decode step, with
     the attention kernels' shares;
-12. one JSON line listing each ported kernel (the dense kernel's launches
-    summed over the dense main path, the rack tier and phase 9's kernel
-    paths; the stage kernel's over the fused main path and the deep tier),
-    then the result line.
+12. faults and receding-horizon (MPC) planning, at the benchmarks' own
+    settings: benchmarks/budget_horizon.py's CO2-day tier (256 SYSTEM_1
+    nodes, 96 rounds, horizon 12, eco 0.7; myopic, reactive and mpc fused
+    on the card, mpc on the host: fused == host bitwise with every
+    planned budget, spend within every budget, mpc's perf per CO2 above
+    myopic's, 0 fallbacks) and its solar tier (128 nodes, 8 racks,
+    ``ecoshift_hier``: fused == host bitwise with ``last_domain_spent``,
+    every rack under its cap); the deep tree under explicit faults (NACK,
+    NaN telemetry, partial and delayed actuation, a dropped and a stale
+    batch, a restored crash at round 5) fused against the host, every
+    domain's settled draw under its cap, no domain over in two rounds in
+    a row, at least three fused rounds after the crash; the fused main
+    path's 2048 nodes under benchmarks/fault_storm.py's rate-0.30 storm
+    (fused == host, no settled overdraw) and its crash_restore tier (the
+    restored run, its snapshots through ``save_snapshot`` /
+    ``load_snapshot`` on disk, equal to the uninterrupted one); and the
+    dense main path's 256 nodes under the same storm, ``pallas`` against
+    ``jax`` with kernel 2.2 in the pinned rounds;
+13. one JSON line listing each ported kernel (the dense kernel's launches
+    summed over the dense main path, the rack tier, phase 9's kernel
+    paths and the dense storm; the stage kernel's over the fused main
+    path, the deep tier and phase 12's fused runs), then the result line.
 
 It exits 2 without printing a result when no CUDA card is present or when
 the port's sources are not beside it.
@@ -144,6 +162,21 @@ RACK_NODES = 10_000
 RACK_COUNT = 16
 RACK_BUDGET = 8000.0
 RACK_ROUNDS = 4
+# faults and MPC: benchmarks/budget_horizon.py's and benchmarks/fault_storm.py's
+# full settings
+MPC_NODES = 256
+MPC_HIER_NODES = 128
+MPC_HIER_RACKS = 8
+MPC_ROUNDS = 96
+MPC_HORIZON = 12
+MPC_ECO = 0.7
+STORM_ROUNDS = 24
+# a quarter of 8, 5, 9, 4, 8, 6, 9, 5, 8, 7 kW, then 6 and 9 kW: every round's
+# budget under the ~2.5 kW the deep tree's chassis caps let it spend, so each
+# round binds and a NACKed receiver's stale caps differ from its command; the
+# last two clean rounds outlast the NACK backoff of the storm's pins (to 8)
+DEEP_STORM_BUDGETS = (2000.0, 1250.0, 2250.0, 1000.0, 2000.0, 1500.0, 2250.0, 1250.0,
+                      2000.0, 1750.0, 1500.0, 2250.0)
 # the policy comparison at the benchmarks' own settings (benchmarks/
 # common.py): the 40-app suite with the last 12 held out of the offline fit
 # and onboarded online, the benchmark-grade NCF config, a budget sweep
@@ -1359,6 +1392,493 @@ def rack_tier_phase(dev, apps, surfs) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Faults and receding-horizon (MPC) planning
+# ---------------------------------------------------------------------------
+
+
+def _run_logged(sim, scen, ctrl):
+    """sim.run under ``ctrl`` with each engine round logged: last_solver,
+    fallback reason, last_domain_spent, the planned budget, the planner's
+    host seconds and the launches each kernel made in the round.  Calls a
+    pinned round makes for its free receivers (``_skip_pins``) are not
+    rounds.  Returns (result, log, seconds)."""
+    import torch
+
+    from repro_torch.kernels import mckp_dp
+
+    log = []
+    method = ("allocate_hierarchical" if getattr(ctrl, "supports_hierarchical", False)
+              else "allocate_grouped")
+    inner = getattr(ctrl, method)
+    plan_s = [0.0]
+
+    def call(*a, **kw):
+        before = dict(mckp_dp.launches)
+        plan_s[0] = 0.0
+        out = inner(*a, **kw)
+        if not kw.get("_skip_pins"):
+            log.append({
+                "solver": ctrl.last_solver, "reason": ctrl.last_fallback_reason,
+                "domain_spent": getattr(ctrl, "last_domain_spent", None),
+                "planned": getattr(ctrl, "last_planned_budget", None),
+                "plan": getattr(ctrl, "last_plan", None),
+                "plan_s": plan_s[0],
+                "launches": {k: v - before.get(k, 0) for k, v in mckp_dp.launches.items()},
+            })
+        return out
+
+    setattr(ctrl, method, call)
+    if hasattr(ctrl, "_plan_budget"):
+        inner_plan = ctrl._plan_budget
+
+        def timed_plan(budget, frontier_fn):
+            t = time.perf_counter()
+            out = inner_plan(budget, frontier_fn)
+            plan_s[0] += time.perf_counter() - t
+            return out
+
+        ctrl._plan_budget = timed_plan
+    t0 = time.perf_counter()
+    res = sim.run(scen, ctrl)
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, log, time.perf_counter() - t0
+
+
+def _fault_records_equal(a, b) -> bool:
+    """_hier_records_equal plus the PowerGuard columns, the telemetry fault
+    kinds and the settled telemetry (bitwise, NaN where corruption put
+    one)."""
+    import numpy as np
+
+    if not _records_equal(a, b):
+        return False
+    for ra, rb in zip(a.records, b.records, strict=True):
+        if (ra.domain_draw != rb.domain_draw or ra.domain_caps != rb.domain_caps
+                or ra.result.budget != rb.result.budget):
+            return False
+        for f in ("overdraw_w", "derate_w", "excursion_domains", "nacked", "telemetry_faults"):
+            if getattr(ra, f) != getattr(rb, f):
+                return False
+        for f in ("allocated_caps", "t_baseline", "t_allocated", "improvement"):
+            if (np.asarray(getattr(ra.telemetry, f)).tobytes()
+                    != np.asarray(getattr(rb.telemetry, f)).tobytes()):
+                return False
+    return True
+
+
+def _scores(res) -> dict:
+    """benchmarks/budget_horizon.py's totals: measured value, grams CO2
+    (intensity x spent watts a round), dollars, and perf per CO2 and per
+    dollar; fails if a round spends past its budget."""
+    value = grams = dollars = 0.0
+    for rec in res.records:
+        spent = rec.result.allocation.spent
+        check(spent <= rec.result.budget + 1e-6,
+              f"round {rec.round}: spent {spent!r} W over the budget {rec.result.budget!r} W")
+        value += rec.avg_improvement
+        if rec.carbon_intensity is not None:
+            grams += rec.carbon_intensity * spent
+        if rec.power_price is not None:
+            dollars += rec.power_price * spent
+    return {"value": value, "co2_g": grams, "dollars": dollars,
+            "perf_per_co2": value / grams if grams > 0 else None,
+            "perf_per_dollar": value / dollars if dollars > 0 else None}
+
+
+def _budget_trace(n_rounds: int, nominal: float) -> list:
+    """benchmarks/fault_storm.py's varying budget (NACKs are invisible on a
+    constant one)."""
+    import numpy as np
+
+    t = np.arange(n_rounds)
+    return (nominal * (1.0 + 0.5 * np.sin(2.0 * np.pi * t / 7.0))).tolist()
+
+
+def _storm(scen, rate: float, seed: int, crash_rounds=()):
+    """benchmarks/fault_storm.py's storm at ``rate``."""
+    return scen.with_fault_storm(
+        seed=seed, telemetry_drop=rate / 2, telemetry_delay=rate / 2,
+        telemetry_corrupt=rate, telemetry_stale=rate / 2, actuation_nack=rate,
+        actuation_partial=rate, actuation_delay=rate / 2, node_fraction=0.3,
+        crash_rounds=crash_rounds,
+    )
+
+
+def _safety(res) -> dict:
+    """benchmarks/fault_storm.py's settled-draw counters: rounds whose
+    settled draw (the telemetry's applied caps) passed the budget or a
+    domain cap, the longest run of them, the worst pre-derate excursion,
+    the watts derated and the rounds with a NACK."""
+    import numpy as np
+
+    out = {"overdraw_rounds": 0, "max_consecutive_overdraw": 0, "max_excursion_w": 0.0,
+           "derate_total_w": 0.0, "nack_rounds": 0}
+    run = 0
+    for rec in res.records:
+        t = rec.telemetry
+        extra = float(np.sum(t.allocated_caps) - np.sum(t.baseline_caps))
+        bad = extra > rec.result.budget + 1e-6 or any(
+            w > rec.domain_caps[d] + 1e-6 for d, w in (rec.domain_draw or {}).items()
+        )
+        run = run + 1 if bad else 0
+        out["overdraw_rounds"] += bad
+        out["max_consecutive_overdraw"] = max(out["max_consecutive_overdraw"], run)
+        out["max_excursion_w"] = max(out["max_excursion_w"], rec.overdraw_w)
+        out["derate_total_w"] += rec.derate_w
+        out["nack_rounds"] += bool(rec.nacked)
+    return out
+
+
+def _solver_counts(log) -> dict:
+    out: dict = {}
+    for e in log:
+        out[e["solver"]] = out.get(e["solver"], 0) + 1
+    return out
+
+
+def mpc_flat_phase(dev, apps, surfs) -> int:
+    """benchmarks/budget_horizon.py's CO2-day tier at its full settings:
+    MPC_NODES SYSTEM_1 nodes for MPC_ROUNDS rounds on a constant 2 W/node
+    site budget with the co2_day / price_day fixtures; myopic, reactive
+    (the budget scaled by MPC_ECO) and mpc (horizon MPC_HORIZON,
+    eco_factor MPC_ECO) as ecoshift with fused=True on the card, and mpc on
+    the host sparse solver.  Returns kernel 2.1's launches on the fused
+    runs."""
+    from repro_torch.cluster import ClusterSim, ConstantProvider, Scenario, ScaledProvider
+    from repro_torch.cluster import make_controller
+    from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_1
+    n = MPC_NODES
+    budget = 2.0 * n
+    scen = Scenario.carbon_aware(MPC_ROUNDS, ConstantProvider(budget))
+    cases = [
+        ("myopic", scen, {"fused": True}),
+        ("reactive", scen.with_budget_provider(
+            ScaledProvider(ConstantProvider(budget), MPC_ECO)), {"fused": True}),
+        ("mpc", scen, {"fused": True, "horizon": MPC_HORIZON, "eco_factor": MPC_ECO}),
+        ("mpc_host", scen, {"horizon": MPC_HORIZON, "eco_factor": MPC_ECO}),
+    ]
+    runs = {}
+    launches = 0
+    for name, s, kw in cases:
+        sim = ClusterSim.build(system, apps, surfs, n_nodes=n, seed=SEED,
+                               initial_caps=(150.0, 150.0), device=dev)
+        ctrl = make_controller("ecoshift", system, device=dev, **kw)
+        mckp_dp.reset_launches()
+        res, log, wall = _run_logged(sim, s, ctrl)
+        launches += mckp_dp.launches["maxplus_stages_batched"]
+        runs[name] = (res, log, wall, ctrl, _scores(res))
+        if kw.get("fused"):
+            st = ctrl.fused_stats()
+            check(st.fallbacks == 0, f"mpc flat {name}: fused fallbacks {st}")
+            fused_rounds = sum(e["solver"] == "fused" for e in log)
+            check(mckp_dp.launches["maxplus_stages_batched"] == fused_rounds > 0,
+                  f"mpc flat {name}: {mckp_dp.launches} launches, {fused_rounds} fused rounds")
+        print(f"mpc flat {name}: {n} nodes, {MPC_ROUNDS} rounds, wall_s={wall:.4f} "
+              f"round_s={wall / MPC_ROUNDS:.6f} solvers={_solver_counts(log)} "
+              f"launches={dict(mckp_dp.launches)} scores={json.dumps(runs[name][4])}")
+    res_f, log_f, _, ctrl_f, sc_f = runs["mpc"]
+    res_h, log_h, _, _, _ = runs["mpc_host"]
+    check(_records_equal(res_f, res_h), "mpc flat: fused and host records differ")
+    check([(e["planned"], e["plan"]) for e in log_f] == [(e["planned"], e["plan"]) for e in log_h],
+          "mpc flat: fused and host planned budgets differ")
+    restricted = sum(e["planned"] is not None for e in log_f)
+    check(restricted > 0, "mpc flat: the plan never restricted a round")
+    ppc = {k: v[4]["perf_per_co2"] for k, v in runs.items()}
+    check(ppc["mpc"] > ppc["myopic"],
+          f"mpc flat: perf per CO2 {ppc['mpc']!r} does not beat myopic {ppc['myopic']!r}")
+    for rf, rh, ef, eh in zip(res_f.records, res_h.records, log_f, log_h):
+        print(f"mpc flat round {rf.round}: budget={rf.result.budget!r} "
+              f"planned={ef['planned']!r} spent={rf.result.allocation.spent!r} "
+              f"co2={rf.carbon_intensity!r} avg_improvement={rf.avg_improvement!r} "
+              f"solver={ef['solver']} host_solver={eh['solver']} "
+              f"launches={ef['launches']['maxplus_stages_batched']} "
+              f"fused allocate_s={rf.seconds['allocate_s']:.6f} plan_s={ef['plan_s']:.6f} "
+              f"host allocate_s={rh.seconds['allocate_s']:.6f} plan_s={eh['plan_s']:.6f}")
+    print(f"mpc flat: restricted_rounds={restricted} ppc_gain_vs_myopic="
+          f"{ppc['mpc'] / ppc['myopic']!r} ppc_gain_vs_reactive="
+          f"{ppc['mpc'] / ppc['reactive']!r} plan_s_mean fused="
+          f"{sum(e['plan_s'] for e in log_f) / len(log_f):.6f} host="
+          f"{sum(e['plan_s'] for e in log_h) / len(log_h):.6f} stats={ctrl_f.fused_stats()}")
+    return launches
+
+
+def mpc_hier_phase(dev, apps, surfs) -> int:
+    """benchmarks/budget_horizon.py's solar tier at its full settings:
+    MPC_HIER_NODES SYSTEM_1 nodes in MPC_HIER_RACKS racks (320 W a node
+    plus an eighth of the peak each), a solar-following budget (peak 2.5
+    W/node, grid floor 0.5 W/node) with the co2_day / price_day fixtures;
+    ecoshift_hier myopic and mpc with fused=True, and mpc on the host.
+    Returns kernel 2.1's launches on the fused runs."""
+    from repro_torch.cluster import ClusterSim, PowerTopology, Scenario, make_controller
+    from repro_torch.cluster import fixture_trace, solar_budget
+    from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_1
+    n, racks, rounds = MPC_HIER_NODES, MPC_HIER_RACKS, MPC_ROUNDS
+    peak, floor = 2.5 * n, 0.5 * n
+    topo = PowerTopology.uniform_racks(n, racks, rack_cap=320.0 * (n // racks) + peak / racks)
+    scen = Scenario(
+        n_rounds=rounds, budget=solar_budget(peak, floor_watts=floor, n_rounds=rounds),
+        carbon=fixture_trace("co2_day", rounds), power_price=fixture_trace("price_day", rounds),
+    ).with_topology(topo)
+    runs = {}
+    launches = 0
+    for name, kw in (("myopic", {"fused": True}),
+                     ("mpc", {"fused": True, "horizon": MPC_HORIZON, "eco_factor": MPC_ECO}),
+                     ("mpc_host", {"horizon": MPC_HORIZON, "eco_factor": MPC_ECO})):
+        sim = ClusterSim.build(system, apps, surfs, n_nodes=n, seed=SEED,
+                               initial_caps=(150.0, 150.0), topology=topo, device=dev)
+        ctrl = make_controller("ecoshift_hier", system, device=dev, **kw)
+        mckp_dp.reset_launches()
+        res, log, wall = _run_logged(sim, scen, ctrl)
+        launches += mckp_dp.launches["maxplus_stages_batched"]
+        runs[name] = (res, log, wall, ctrl, _scores(res))
+        for rec in res.records:
+            _check_domains(rec, topo, f"mpc hier {name}")
+        if kw.get("fused"):
+            st = ctrl.fused_stats()
+            check(st.fallbacks == 0, f"mpc hier {name}: fused fallbacks {st}")
+        print(f"mpc hier {name}: {n} nodes, {racks} racks, {rounds} rounds, wall_s={wall:.4f} "
+              f"round_s={wall / rounds:.6f} solvers={_solver_counts(log)} "
+              f"launches={dict(mckp_dp.launches)} scores={json.dumps(runs[name][4])}")
+    res_f, log_f, _, ctrl_f, _ = runs["mpc"]
+    res_h, log_h, _, _, _ = runs["mpc_host"]
+    check(_hier_records_equal(res_f, res_h), "mpc hier: fused and host records differ")
+    for key in ("domain_spent", "planned", "plan"):
+        check([e[key] for e in log_f] == [e[key] for e in log_h],
+              f"mpc hier: fused and host {key} differ")
+    restricted = sum(e["planned"] is not None for e in log_f)
+    check(restricted > 0, "mpc hier: the plan never restricted a round")
+    ppc = {k: v[4]["perf_per_co2"] for k, v in runs.items()}
+    check(ppc["mpc"] > ppc["myopic"],
+          f"mpc hier: perf per CO2 {ppc['mpc']!r} does not beat myopic {ppc['myopic']!r}")
+    for rf, rh, ef, eh in zip(res_f.records, res_h.records, log_f, log_h):
+        slack = min(rf.domain_caps[d] - w for d, w in rf.domain_draw.items())
+        print(f"mpc hier round {rf.round}: budget={rf.result.budget!r} "
+              f"planned={ef['planned']!r} spent={rf.result.allocation.spent!r} "
+              f"least_rack_slack_w={slack!r} solver={ef['solver']} host_solver={eh['solver']} "
+              f"launches={ef['launches']['maxplus_stages_batched']} "
+              f"fused allocate_s={rf.seconds['allocate_s']:.6f} plan_s={ef['plan_s']:.6f} "
+              f"host allocate_s={rh.seconds['allocate_s']:.6f} plan_s={eh['plan_s']:.6f}")
+    print(f"mpc hier: restricted_rounds={restricted} ppc_gain_vs_myopic="
+          f"{ppc['mpc'] / ppc['myopic']!r} stats={ctrl_f.fused_stats()}")
+    return launches
+
+
+def _check_storm_domains(res, label: str) -> None:
+    """Every domain's settled draw at or under its cap every round, and no
+    domain excursing (before PowerGuard's derate) in two rounds in a row."""
+    prev: set = set()
+    for rec in res.records:
+        for d, w in rec.domain_draw.items():
+            check(w <= rec.domain_caps[d] + 1e-6,
+                  f"{label} round {rec.round}: {d} settled at {w!r} W over its "
+                  f"{rec.domain_caps[d]!r} W cap")
+        cur = set(rec.excursion_domains)
+        check(not (cur & prev), f"{label} round {rec.round}: {sorted(cur & prev)} over "
+              f"their caps two rounds in a row")
+        check(rec.overdraw_w == 0.0 or rec.derate_w > 0.0,
+              f"{label} round {rec.round}: an excursion PowerGuard did not derate")
+        prev = cur
+
+
+def deep_storm_phase(dev, apps, surfs) -> int:
+    """The deep tree (DEEP_NODES nodes, 125 domains) under explicit faults:
+    DEEP_STORM_BUDGETS, NACK + NaN telemetry at round 1, partial actuation
+    + a dropped batch at 2, delayed actuation + a stale batch at 3, a
+    restored controller crash at 5, the rounds after it clean;
+    ecoshift_hier with fused=True against the host.  Returns kernel 2.1's launches on the
+    fused run."""
+    from repro_torch.cluster import (ActuationDelay, ActuationNack, ActuationPartial,
+                                     ClusterSim, ControllerCrash, Scenario,
+                                     TelemetryCorrupt, TelemetryDrop, TelemetryStale,
+                                     make_controller)
+    from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_1
+    t0 = time.perf_counter()
+    topo, _, _ = _deep_topology(system, apps, surfs, dev)
+    rounds = len(DEEP_STORM_BUDGETS)
+    scen = Scenario(rounds, budget=list(DEEP_STORM_BUDGETS)).with_topology(topo).with_faults([
+        ActuationNack(round=1, fraction=0.3, seed=SEED + 1),
+        TelemetryCorrupt(round=1, fraction=0.25, mode="nan", seed=SEED + 2),
+        ActuationPartial(round=2, fraction=0.3, seed=SEED + 3),
+        TelemetryDrop(round=2),
+        ActuationDelay(round=3, fraction=0.3, seed=SEED + 4),
+        TelemetryStale(round=3, age=1),
+        ControllerCrash(round=5, restore=True),
+    ])
+    print(f"deep storm: {DEEP_NODES} nodes, {len(topo)} domains, {rounds} rounds, budgets "
+          f"{list(DEEP_STORM_BUDGETS)}, setup_s={time.perf_counter() - t0:.2f}")
+    out = {}
+    for fused in (True, False):
+        sim = ClusterSim.build(system, apps, surfs, n_nodes=DEEP_NODES, seed=SEED,
+                               initial_caps=(150.0, 150.0), topology=topo, device=dev)
+        ctrl = make_controller("ecoshift_hier", system, device=dev, fused=fused)
+        mckp_dp.reset_launches()
+        res, log, wall = _run_logged(sim, scen, ctrl)
+        out[fused] = (res, log, wall, ctrl, dict(mckp_dp.launches))
+    res_f, log_f, wall_f, ctrl, launches = out[True]
+    res_h, log_h, wall_h, _, _ = out[False]
+    for rf, rh, ef, eh in zip(res_f.records, res_h.records, log_f, log_h):
+        print(f"deep storm round {rf.round}: budget={rf.result.budget!r} "
+              f"spent={rf.result.allocation.spent!r} nacked={len(rf.nacked)} "
+              f"overdraw_w={rf.overdraw_w!r} derate_w={rf.derate_w!r} "
+              f"excursions={len(rf.excursion_domains)} telemetry_faults={list(rf.telemetry_faults)} "
+              f"solver={ef['solver']} host_solver={eh['solver']} "
+              f"launches={ef['launches']['maxplus_stages_batched']} "
+              f"fused allocate_s={rf.seconds['allocate_s']:.4f} actuate_s="
+              f"{rf.seconds['actuate_s']:.4f} round_s={sum(rf.seconds.values()):.4f} "
+              f"host allocate_s={rh.seconds['allocate_s']:.4f} "
+              f"round_s={sum(rh.seconds.values()):.4f}")
+    check(_fault_records_equal(res_f, res_h), "deep storm: fused and host records differ")
+    check([e["domain_spent"] for e in log_f] == [e["domain_spent"] for e in log_h],
+          "deep storm: fused and host last_domain_spent differ")
+    _check_storm_domains(res_f, "deep storm")
+    st = ctrl.fused_stats()
+    check(st.fallbacks == 0, f"deep storm: fused fallbacks {st}")
+    after = sum(e["solver"] == "fused" for e in log_f[5:])
+    check(after >= 3, f"deep storm: {after} fused rounds after the crash (want >= 3)")
+    check(st.rebuilds >= 2, f"deep storm: the banks were not rebuilt after the crash ({st})")
+    check(any(r.nacked for r in res_f.records), "deep storm: no NACK round")
+    print(f"deep storm: launches={launches} fused_after_crash={after} wall_s "
+          f"fused={wall_f:.4f} host={wall_h:.4f} safety={json.dumps(_safety(res_f))} stats={st}")
+    return launches["maxplus_stages_batched"]
+
+
+def flat_storm_phase(dev, apps, surfs) -> int:
+    """The fused main path's 2048 SYSTEM_2 nodes under
+    benchmarks/fault_storm.py's rate-0.30 storm (seed 17) on its 24-round
+    sinusoidal budget (40 W a node nominal): ecoshift with fused=True
+    against the host; then its crash_restore tier (a crash at round 12,
+    restored through a snapshot file, and cold) against the uninterrupted
+    run.  Returns kernel 2.1's launches on the fused storm run."""
+    import os
+    import tempfile
+
+    from repro_torch.cluster import (ClusterSim, ControllerCrash, Scenario, load_snapshot,
+                                     make_controller, save_snapshot)
+    from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_2
+    n = N_NODES_FUSED
+    rounds = STORM_ROUNDS
+    clean = Scenario(rounds, budget=_budget_trace(rounds, 40.0 * n))
+
+    def play(scen, fused, wrap=None):
+        sim = ClusterSim.build(system, apps, surfs, n_nodes=n, seed=SEED, device=dev)
+        ctrl = make_controller("ecoshift", system, device=dev, fused=fused)
+        if wrap is not None:
+            wrap(ctrl)
+        mckp_dp.reset_launches()
+        res, log, wall = _run_logged(sim, scen, ctrl)
+        return res, log, wall, ctrl, dict(mckp_dp.launches)
+
+    storm = _storm(clean, 0.30, seed=17)
+    res_f, log_f, wall_f, ctrl, launches = play(storm, True)
+    res_h, log_h, wall_h, _, _ = play(storm, False)
+    check(_fault_records_equal(res_f, res_h), "flat storm: fused and host records differ")
+    safety = _safety(res_f)
+    check(safety["overdraw_rounds"] == 0,
+          f"flat storm: settled draw over the budget in {safety['overdraw_rounds']} rounds")
+    check(safety["nack_rounds"] > 0, "flat storm: no NACK round")
+    for rf, rh, ef, eh in zip(res_f.records, res_h.records, log_f, log_h):
+        print(f"flat storm round {rf.round}: budget={rf.result.budget!r} "
+              f"spent={rf.result.allocation.spent!r} nacked={len(rf.nacked)} "
+              f"overdraw_w={rf.overdraw_w!r} derate_w={rf.derate_w!r} "
+              f"telemetry_faults={list(rf.telemetry_faults)} solver={ef['solver']} "
+              f"reason={ef['reason']!r} host_solver={eh['solver']} "
+              f"launches={ef['launches']['maxplus_stages_batched']} "
+              f"fused allocate_s={rf.seconds['allocate_s']:.4f} actuate_s="
+              f"{rf.seconds['actuate_s']:.4f} host allocate_s={rh.seconds['allocate_s']:.4f}")
+    print(f"flat storm: {n} nodes, {rounds} rounds, {len(storm.faults)} fault events, "
+          f"solvers={_solver_counts(log_f)} host_solvers={_solver_counts(log_h)} "
+          f"launches={launches} wall_s fused={wall_f:.4f} host={wall_h:.4f} "
+          f"safety={json.dumps(safety)} stats={ctrl.fused_stats()}")
+
+    crash_at = rounds // 2
+    ref, _, _, _, _ = play(clean, True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "controller.snap")
+        sizes = []
+
+        def via_file(ctrl):
+            inner = ctrl.snapshot
+
+            def snapshot():
+                save_snapshot(path, inner())
+                sizes.append(os.path.getsize(path))
+                return load_snapshot(path)
+
+            ctrl.snapshot = snapshot
+
+        for name, restore in (("restore", True), ("cold", False)):
+            scen = clean.with_faults([ControllerCrash(round=crash_at, restore=restore)])
+            res, log, wall, c, _ = play(scen, True, via_file if restore else None)
+            recovery = sum(
+                dict(a.result.allocation.caps) != dict(b.result.allocation.caps)
+                or a.result.improvements != b.result.improvements
+                for a, b in zip(ref.records[crash_at:], res.records[crash_at:])
+            )
+            if restore:
+                check(recovery == 0, f"crash restore: {recovery} rounds differ from the "
+                      f"uninterrupted run")
+                check(sizes, "crash restore: no snapshot went through the file")
+            st = c.fused_stats()
+            print(f"crash {name}: crash at round {crash_at}, recovery_rounds={recovery} "
+                  f"solvers={_solver_counts(log)} snapshot_bytes={sizes[-1] if sizes else 0} "
+                  f"snapshots_through_file={len(sizes) if restore else 0} rebuilds={st.rebuilds} "
+                  f"fallbacks={st.fallbacks} wall_s={wall:.4f}")
+    return launches["maxplus_stages_batched"]
+
+
+def dense_storm_phase(dev, apps, surfs) -> int:
+    """The dense main path's 256 SYSTEM_2 nodes under the rate-0.30 storm
+    (seed 17) on the sinusoidal budget: solver="pallas" (kernel 2.2)
+    against "jax", with kernel 2.2 launched in the pinned rounds too.
+    Returns kernel 2.2's launches on the pallas run."""
+    from repro_torch.cluster import ClusterSim, Scenario, make_controller
+    from repro_torch.core import types
+    from repro_torch.kernels import mckp_dp
+
+    system = types.SYSTEM_2
+    rounds = STORM_ROUNDS
+    scen = _storm(Scenario(rounds, budget=_budget_trace(rounds, 40.0 * N_NODES)), 0.30, seed=17)
+    out = {}
+    for solver in ("pallas", "jax"):
+        sim = ClusterSim.build(system, apps, surfs, n_nodes=N_NODES, seed=SEED, device=dev)
+        ctrl = make_controller("ecoshift", system, device=dev, solver=solver)
+        mckp_dp.reset_launches()
+        res, log, wall = _run_logged(sim, scen, ctrl)
+        out[solver] = (res, log, wall, dict(mckp_dp.launches))
+    res_k, log_k, wall_k, launches = out["pallas"]
+    res_p, log_p, wall_p, _ = out["jax"]
+    check(_fault_records_equal(res_k, res_p), "dense storm: pallas and jax records differ")
+    safety = _safety(res_k)
+    check(safety["overdraw_rounds"] == 0, "dense storm: settled draw over the budget")
+    pinned = [e for e in log_k if e["solver"] == "pinned"]
+    check(pinned and all(e["launches"]["maxplus_conv_batched"] > 0 for e in pinned),
+          "dense storm: no pinned round, or one without a kernel 2.2 launch")
+    for rk, rp, ek in zip(res_k.records, res_p.records, log_k):
+        print(f"dense storm round {rk.round}: budget={rk.result.budget!r} "
+              f"spent={rk.result.allocation.spent!r} nacked={len(rk.nacked)} "
+              f"solver={ek['solver']} launches={ek['launches']['maxplus_conv_batched']} "
+              f"pallas allocate_s={rk.seconds['allocate_s']:.4f} "
+              f"jax allocate_s={rp.seconds['allocate_s']:.4f}")
+    print(f"dense storm: {N_NODES} nodes, {rounds} rounds, pinned_rounds={len(pinned)} "
+          f"launches={launches} wall_s pallas={wall_k:.4f} jax={wall_p:.4f} "
+          f"safety={json.dumps(safety)}")
+    return launches["maxplus_conv_batched"]
+
+
+# ---------------------------------------------------------------------------
 # The policy comparison: NCF, the baselines, the Oracle, the online loop
 # ---------------------------------------------------------------------------
 
@@ -2225,6 +2745,16 @@ def main() -> int:
     lap("deep_tree")
     launches["maxplus_conv_batched"] = rack_tier_phase(dev, apps1, surfs1)
     lap("rack_tier")
+    launches["maxplus_stages_batched"] += mpc_flat_phase(dev, apps1, surfs1)
+    lap("mpc_flat")
+    launches["maxplus_stages_batched"] += mpc_hier_phase(dev, apps1, surfs1)
+    lap("mpc_hier")
+    launches["maxplus_stages_batched"] += deep_storm_phase(dev, apps1, surfs1)
+    lap("deep_storm")
+    launches["maxplus_stages_batched"] += flat_storm_phase(dev, apps, surfs)
+    lap("flat_storm")
+    launches["maxplus_conv_batched"] += dense_storm_phase(dev, apps, surfs)
+    lap("dense_storm")
 
     ncf_cfg = ncf.NCFConfig(train_steps=NCF_TRAIN_STEPS, online_steps=NCF_ONLINE_STEPS)
     alloc, unseen = ncf_phase(dev, apps, surfs, ncf_cfg, NCF_HOST_STEPS)

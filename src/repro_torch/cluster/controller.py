@@ -38,15 +38,33 @@ solves each round with ``solver``:
  * ``"jax"`` — the same dense DP on the plain PyTorch version;
  * ``"dense"`` — the numpy dense DP.
 
-The names are the reference's.  Receding-horizon (MPC) planning and the
-fault paths (NACK pins, snapshots) raise ``NotImplementedError`` naming
-their ROADMAP item.
+The names are the reference's.
+
+Receding-horizon (MPC) planning: with ``horizon > 1`` and ``eco_factor <
+1`` on the sparse solver, the engine feeds a budget outlook each round
+(``set_budget_outlook``) and the controller commits, for this round, the
+first spend of ``mckp.plan_horizon`` over the cluster's value-vs-spend
+frontier (``grouped_frontier`` on the flat path, ``hierarchical_frontier``
+on the warm ``HierState``).  A plan that would not restrict the round
+leaves the myopic path literally unchanged.
+
+Fault paths: an actuation report (``notify_actuation``) pins NACKed
+receivers at their last-confirmed caps with bounded retry backoff; a
+pinned round solves the free receivers on a standalone sub-batch
+(``_solve_pinned``), so it leaves the incremental and fused paths and runs
+on the host sparse solver (or on the dense kernel under ``"pallas"``).
+``snapshot``/``restore`` carry the state that changes results (pins, the
+predictor's online state); ``crash_reset`` drops every warm cache, the
+resident device banks included, and ``save_snapshot``/``load_snapshot``
+persist a snapshot atomically in the reference's msgpack layout.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import os
+import struct
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -65,11 +83,6 @@ from repro_torch.core.types import (
     as_receiver_order,
 )
 from repro_torch.device import resolve_device
-
-FAULTS_NOT_PORTED = (
-    "the fault paths (actuation reports, NACK pins, snapshot/restore) are "
-    "not ported yet: ROADMAP.md, queue 1, item 5"
-)
 
 
 class Controller:
@@ -100,17 +113,45 @@ class Controller:
 
     def ingest_telemetry(self, records: Sequence) -> None:
         """Consume one round's noisy measurements; the engine calls this
-        after every measured round.  Predictor-backed controllers (not
-        ported yet) refresh their surfaces here; everyone else ignores it."""
+        after every measured round.  Predictor-backed controllers
+        (``ecoshift_online``, ``ecoshift_hier`` with a predictor) refresh
+        their surfaces here; everyone else ignores it."""
+
+    def reset(self) -> None:
+        self.invalidate()
+
+    # -- fault-tolerance hooks ---------------------------------------------
 
     def notify_actuation(self, report) -> None:
-        raise NotImplementedError(FAULTS_NOT_PORTED)
+        """Engine hook after a faulted round's actuation settles
+        (:class:`repro_torch.cluster.faults.ActuationReport`).  DP
+        controllers pin NACKed receivers at their last-confirmed caps with
+        bounded retry backoff; the base class ignores it."""
 
     def snapshot(self) -> dict:
-        raise NotImplementedError(FAULTS_NOT_PORTED)
+        """Serializable warm-state checkpoint (plain python/numpy values).
+
+        A controller that is ``crash_reset()`` then ``restore(snapshot)``-ed
+        produces bit for bit the allocations of the uninterrupted run.
+        Warm caches are not serialized: every incremental and fused path
+        is bitwise its from-scratch solve, so only state that changes
+        results (pins, online-learned predictor state) survives; caches
+        and resident device banks rebuild cold."""
+        return {"policy": self.policy}
 
     def restore(self, state: Mapping) -> None:
-        raise NotImplementedError(FAULTS_NOT_PORTED)
+        """Adopt a :meth:`snapshot`; drops any warm caches accumulated
+        since, so restore is self-contained on a warm controller."""
+        if state.get("policy") != self.policy:
+            raise ValueError(
+                f"snapshot of policy {state.get('policy')!r} cannot restore "
+                f"a {self.policy!r} controller"
+            )
+
+    def crash_reset(self) -> None:
+        """A controller process crash: all warm state is gone (restore a
+        snapshot afterwards for checkpointed failover)."""
+        self.reset()
 
 
 class _StatelessController(Controller):
@@ -145,10 +186,16 @@ class MixedAdaptiveController(_StatelessController):
 class ControllerConfig:
     """Construction config of the EcoShift-family and Oracle controllers.
 
-    The defaults are the reference's.  ``horizon > 1`` selects receding-
-    horizon planning, which is not ported yet and raises.  ``device`` is
-    where the fused round and the ``"jax"``/``"pallas"`` stages run (None =
-    the CUDA card).
+    The defaults are the reference's; an explicit keyword passed to a
+    controller's ``__init__`` overrides the field (``merged``).  ``device``
+    is where the fused round and the ``"jax"``/``"pallas"`` stages run
+    (None = the CUDA card).
+
+    Receding horizon: ``horizon`` is how many rounds of budget forecast
+    the controller plans over (1 = myopic, planning off); ``eco_factor`` is
+    the fraction of the myopic weighted (CO2 or price) spend the plan may
+    use (>= 1 never restricts); ``plan_levels`` / ``plan_grid`` bound the
+    horizon DP's candidates a round and its allowance lattice.
     """
 
     solver: str = "sparse"
@@ -162,10 +209,27 @@ class ControllerConfig:
     #: repro_torch.cluster.predictor.OnlinePredictor (required by the
     #: online controller; optional surface source for the hier controller)
     predictor: object | None = None
+    #: repro_torch.core.topology.PowerTopology (hier controller; the
+    #: engine binds its own when none is given)
+    topology: object | None = None
     #: Oracle brute-force toggle (None = auto, <= 10 receivers)
     exhaustive: bool | None = None
     #: receding-horizon plan length in rounds (1 = myopic)
     horizon: int = 1
+    #: fraction of the myopic weighted spend the planner may use
+    eco_factor: float = 1.0
+    #: max frontier candidates per horizon step
+    plan_levels: int = 64
+    #: allowance-lattice cells of the horizon DP
+    plan_grid: int = 2048
+    #: LRU bounds of the warm caches (None = the class defaults).  Any
+    #: bound >= 1 keeps results bit for bit: an eviction recomputes
+    max_group_tables: int | None = None
+    max_agg_curves: int | None = None
+    max_picks: int | None = None
+    max_plans: int | None = None
+    max_allocations: int | None = None
+    max_frontiers: int | None = None
     device: str | torch.device | None = None
 
     def merged(self, **overrides) -> "ControllerConfig":
@@ -351,6 +415,13 @@ class _OptionCachingController(Controller):
     MAX_PLANS = 256
     MAX_ALLOCATIONS = 8
 
+    #: NACK retry policy: after this many consecutive NACKs the controller
+    #: stops re-commanding a receiver (the pin holds until an event or
+    #: ``invalidate`` touches it) ...
+    NACK_MAX_RETRIES = 4
+    #: ... and the exponential retry backoff is capped at this many rounds
+    NACK_MAX_BACKOFF = 8
+
     def __init__(self, system: SystemSpec):
         super().__init__(system)
         #: name -> (baseline, surface, table); surface compared by identity
@@ -371,6 +442,12 @@ class _OptionCachingController(Controller):
         self._alloc_cache = mckp.LRUCache(self.MAX_ALLOCATIONS)
         #: delta-maintained behaviour-class grouping
         self._grouping = _GroupingState()
+        #: NACK pin book: name -> {"caps": (c, g) last-confirmed applied,
+        #: "fails": consecutive NACKs, "until": round the backoff expires}
+        self._pins: dict[str, dict] = {}
+        #: round of the latest actuation report (pins apply to the next
+        #: round's solve)
+        self._pin_round: int = -1
 
     def invalidate(self, names: Sequence[str] | None = None) -> None:
         if names is None:
@@ -382,9 +459,202 @@ class _OptionCachingController(Controller):
             self._plan_cache.clear()
             self._alloc_cache.clear()
             self._grouping.reset()
+            self._pins.clear()
+            self._pin_round = -1
         else:
             for n in names:
                 self._options.pop(n, None)
+                # an event touching a pinned node (failure, phase change)
+                # supersedes the pin: the next solve re-commands it
+                self._pins.pop(n, None)
+
+    def _apply_cache_bounds(self, cfg: ControllerConfig) -> None:
+        """Resize the warm caches to the config's LRU bounds, in place
+        (``mckp.HierState`` holds references to the same cache objects)."""
+        for cache, bound in (
+            (self._group_tables, cfg.max_group_tables),
+            (self._agg_curves, cfg.max_agg_curves),
+            (self._pick_cache, cfg.max_picks),
+            (self._plan_cache, cfg.max_plans),
+            (self._alloc_cache, cfg.max_allocations),
+        ):
+            if bound is not None:
+                cache.resize(bound)
+
+    # -- NACK pinning --------------------------------------------------------
+
+    def notify_actuation(self, report) -> None:
+        """Pin NACKed receivers at their last-confirmed applied caps with
+        exponential retry backoff: the first NACK retries next round, the
+        k-th after ``min(2^(k-1), NACK_MAX_BACKOFF)`` rounds, and after
+        ``NACK_MAX_RETRIES`` consecutive NACKs the controller stops
+        re-commanding the receiver (the pin holds until an event or
+        ``invalidate`` touches the node).  While pinned, a receiver's
+        command equals its applied caps, so the actuation layer acks it
+        trivially; an ack clears the pin only once the backoff has expired
+        (``report.round >= until``), which is the retry firing and
+        succeeding."""
+        r = int(report.round)
+        self._pin_round = r
+        for nm in report.nacked:
+            p = self._pins.get(nm)
+            fails = (p["fails"] if p is not None else 0) + 1
+            if fails >= self.NACK_MAX_RETRIES:
+                until = r + 10**9  # stop retrying: effectively forever
+            else:
+                until = r + min(2 ** (fails - 1), self.NACK_MAX_BACKOFF)
+            applied = report.applied.get(nm)
+            caps = (
+                (float(applied[0]), float(applied[1]))
+                if applied is not None
+                else p["caps"]
+            )
+            self._pins[nm] = {"caps": caps, "fails": fails, "until": until}
+        for nm in report.acked:
+            p = self._pins.get(nm)
+            if p is not None and r >= p["until"]:
+                del self._pins[nm]
+
+    def _active_pins(self, batch: ReceiverBatch) -> dict[str, tuple[float, float]]:
+        """Pins that constrain this round's solve, among the batch's
+        receivers."""
+        if not self._pins:
+            return {}
+        nxt = self._pin_round + 1
+        present = set(batch.names)
+        return {
+            nm: p["caps"]
+            for nm, p in self._pins.items()
+            if nxt <= p["until"] and nm in present
+        }
+
+    def _solve_pinned(
+        self,
+        batch: ReceiverBatch,
+        budget: float,
+        pins: Mapping[str, tuple[float, float]],
+        domain_extra=None,
+    ) -> Allocation:
+        """Pinned-class solve: NACKed receivers hold their last-confirmed
+        caps; everyone else solves over the remaining budget/headroom.
+
+        The pinned extra is fitted to the current constraints first —
+        derated to each domain's headroom (``PowerTopology.derate_factors``)
+        and to the total budget — so the merged allocation always
+        validates.  The free receivers re-solve through the ordinary
+        grouped/hierarchical path on a standalone (seq=0) sub-batch, so
+        headroom a pin does not use is redistributed, and the delta
+        grouping resyncs from the next engine-sequenced batch."""
+        names = batch.names
+        pinned_idx = [i for i, nm in enumerate(names) if nm in pins]
+        free_idx = [i for i, nm in enumerate(names) if nm not in pins]
+        base = np.asarray(batch.baselines, dtype=np.float64)
+        pbase = base[pinned_idx]
+        pcaps = np.array(
+            [pins[names[i]] for i in pinned_idx], dtype=np.float64
+        ).reshape(len(pinned_idx), 2)
+        # a pin never takes a receiver below its baseline allotment
+        pcaps = np.maximum(pcaps, pbase)
+        pextra = pcaps.sum(axis=1) - pbase.sum(axis=1)
+        topo = getattr(self, "topology", None)
+        dom = (
+            np.asarray(batch.domain_ids)[pinned_idx]
+            if batch.domain_ids is not None and len(pinned_idx)
+            else None
+        )
+
+        def domain_sums(extra):
+            leaf = np.zeros(len(topo), dtype=np.float64)
+            leaf += np.bincount(dom, weights=extra, minlength=len(topo))
+            return topo.aggregate_leaves(leaf)
+
+        scale = np.ones(len(pinned_idx))
+        if domain_extra is not None and dom is not None:
+            scale = topo.derate_factors(
+                domain_sums(pextra), np.asarray(domain_extra, dtype=np.float64)
+            )[dom]
+        tot = float((pextra * scale).sum())
+        if tot > budget + 1e-12 and tot > 0:
+            scale = scale * (float(budget) / tot)
+            tot = float((pextra * scale).sum())
+        pcaps = pbase + scale[:, None] * (pcaps - pbase)
+        pextra = pextra * scale
+
+        free_budget = max(0.0, float(budget) - tot)
+        free_extra = None
+        if domain_extra is not None:
+            free_extra = np.asarray(domain_extra, dtype=np.float64).copy()
+            if dom is not None:
+                free_extra = np.clip(
+                    free_extra - domain_sums(pextra), 0.0, None
+                )
+        free = None
+        if free_idx:
+            sub = ReceiverBatch(
+                names=[names[i] for i in free_idx],
+                surface_ids=[batch.surface_ids[i] for i in free_idx],
+                baselines=base[free_idx],
+                surfaces=[batch.surfaces[i] for i in free_idx],
+                domain_ids=(
+                    np.asarray(batch.domain_ids)[free_idx]
+                    if batch.domain_ids is not None
+                    else None
+                ),
+                seq=0,
+            )
+            if domain_extra is not None:
+                free = self.allocate_hierarchical(
+                    sub, free_budget, free_extra, _skip_pins=True
+                )
+            else:
+                free = self.allocate_grouped(sub, free_budget, _skip_pins=True)
+        caps = dict(free.caps) if free is not None else {}
+        for k, i in enumerate(pinned_idx):
+            caps[names[i]] = (float(pcaps[k, 0]), float(pcaps[k, 1]))
+        pinned_spent = float(pextra.sum())
+        if domain_extra is not None:
+            ds = dict(getattr(self, "last_domain_spent", None) or {})
+            if dom is not None:
+                for dn, w in zip(topo.names, domain_sums(pextra)):
+                    if w:
+                        ds[dn] = ds.get(dn, 0.0) + float(w)
+            self.last_domain_spent = ds
+        self.last_solver = "pinned"
+        return Allocation(
+            caps=caps,
+            spent=(free.spent if free is not None else 0.0) + pinned_spent,
+            predicted_improvement=(
+                free.predicted_improvement if free is not None else 0.0
+            ),
+        )
+
+    # -- snapshot / restore --------------------------------------------------
+
+    def snapshot(self) -> dict:
+        snap = super().snapshot()
+        snap["pins"] = {
+            nm: {
+                "caps": [float(p["caps"][0]), float(p["caps"][1])],
+                "fails": int(p["fails"]),
+                "until": int(p["until"]),
+            }
+            for nm, p in self._pins.items()
+        }
+        snap["pin_round"] = int(self._pin_round)
+        return snap
+
+    def restore(self, state: Mapping) -> None:
+        super().restore(state)
+        self.invalidate(None)  # restore is self-contained on a warm ctrl
+        self._pins = {
+            nm: {
+                "caps": (float(p["caps"][0]), float(p["caps"][1])),
+                "fails": int(p["fails"]),
+                "until": int(p["until"]),
+            }
+            for nm, p in state.get("pins", {}).items()
+        }
+        self._pin_round = int(state.get("pin_round", -1))
 
     @property
     def cached_tables(self) -> int:
@@ -449,20 +719,20 @@ class EcoShiftController(_OptionCachingController):
         incremental: bool | None = None,
         fused: bool | None = None,
         horizon: int | None = None,
+        eco_factor: float | None = None,
+        plan_levels: int | None = None,
+        plan_grid: int | None = None,
         device: str | torch.device | None = None,
     ):
         super().__init__(system)
         cfg = (config if config is not None else ControllerConfig()).merged(
             solver=solver, unit=unit, grouped=grouped,
-            incremental=incremental, fused=fused, horizon=horizon, device=device,
+            incremental=incremental, fused=fused, horizon=horizon,
+            eco_factor=eco_factor, plan_levels=plan_levels,
+            plan_grid=plan_grid, device=device,
         )
         if cfg.solver not in ("sparse", "dense", "jax", "pallas"):
             raise ValueError(f"unknown solver {cfg.solver!r}")
-        if cfg.horizon > 1:
-            raise NotImplementedError(
-                "horizon > 1 (receding-horizon MPC planning) is not ported "
-                "yet: ROADMAP.md, queue 1, item 5"
-            )
         #: the resolved construction config
         self.config = cfg
         self.solver = cfg.solver
@@ -488,11 +758,120 @@ class EcoShiftController(_OptionCachingController):
         #: device seconds inside the last fused round (0.0 for host rounds
         #: and allocation-cache hits)
         self.last_device_s: float = 0.0
+        #: receding-horizon planning: active only when horizon > 1 AND
+        #: eco_factor < 1 AND the engine fed an outlook (sparse solver)
+        self.horizon = int(cfg.horizon)
+        self.eco_factor = float(cfg.eco_factor)
+        self.plan_levels = int(cfg.plan_levels)
+        self.plan_grid = int(cfg.plan_grid)
+        #: (caps, weights) forecast fed by the engine, consumed per round
+        self._outlook: tuple | None = None
+        #: (group tokens, cutoff) -> planning frontier arrays (flat path)
+        self._frontier_lru = mckp.LRUCache(32)
+        #: budget the planner committed for the last round (None = the
+        #: plan did not restrict the round: the myopic path ran verbatim)
+        self.last_planned_budget: float | None = None
+        #: full per-round spend plan behind last_planned_budget
+        self.last_plan: tuple | None = None
+        self._apply_cache_bounds(cfg)
 
     def invalidate(self, names: Sequence[str] | None = None) -> None:
         super().invalidate(names)
         if names is None:
             self._fused_state.clear()
+            self._frontier_lru.clear()
+
+    def snapshot(self) -> dict:
+        # fused banks / HierState / frontiers rebuild cold after a restore;
+        # only the predictor's online-learned state changes allocations
+        snap = super().snapshot()
+        pred = getattr(self, "predictor", None)
+        if pred is not None:
+            snap["predictor"] = pred.state_dict()
+        return snap
+
+    def restore(self, state: Mapping) -> None:
+        super().restore(state)
+        pred = getattr(self, "predictor", None)
+        if pred is not None and "predictor" in state:
+            pred.load_state_dict(state["predictor"])
+
+    def crash_reset(self) -> None:
+        super().crash_reset()
+        pred = getattr(self, "predictor", None)
+        if pred is not None:
+            pred.wipe()
+
+    # -- receding-horizon planning -------------------------------------------
+
+    def set_budget_outlook(self, caps, weights=None) -> None:
+        """Engine hook: the provider-backed budget forecast for the next
+        ``len(caps)`` rounds (``caps[0]`` = this round's budget) plus the
+        optional CO2/price weight signal.  Consumed by the next allocate
+        call; refreshed by the engine every round."""
+        self._outlook = (
+            tuple(float(c) for c in caps),
+            None if weights is None else tuple(float(w) for w in weights),
+        )
+
+    def _plan_pending(self) -> bool:
+        return (
+            self.horizon > 1
+            and self.eco_factor < 1.0
+            and self._outlook is not None
+            and self.solver == "sparse"
+        )
+
+    def _plan_budget(self, budget: float, frontier_fn) -> float:
+        """Run the horizon DP over this round's frontier; returns the
+        budget to commit for round 0 (== ``budget`` whenever the plan
+        would not restrict it: the caller then proceeds on the unchanged
+        myopic path)."""
+        self.last_planned_budget = None
+        self.last_plan = None
+        outlook, self._outlook = self._outlook, None
+        caps, weights = outlook
+        caps = caps[: self.horizon]
+        if weights is not None:
+            weights = weights[: self.horizon]
+        # one frontier serves every horizon cap: states <= any cap are the
+        # same whether the DP ran under that cap or under the larger
+        # quantized cutoff, so the frontier is keyed drift-invariantly
+        cutoff = mckp._curve_cutoff(max(max(caps), float(budget)))
+        keys, vals = frontier_fn(cutoff)
+        plan = mckp.plan_horizon(
+            keys, vals, caps, weights,
+            eco_factor=self.eco_factor,
+            levels=self.plan_levels,
+            grid=self.plan_grid,
+        )
+        if plan is None:
+            return budget
+        b_eff = min(float(budget), float(plan[0]))
+        if b_eff >= budget - 1e-9:
+            return budget
+        self.last_planned_budget = b_eff
+        self.last_plan = tuple(plan)
+        return b_eff
+
+    def _planning_frontier(self, groups, cutoff: float):
+        """Warm flat-path planning frontier (grouped super-stage DP end
+        states), LRU-keyed by (group identity tokens, cutoff)."""
+        key = (
+            tuple(sorted(mckp._group_token(g) for g in groups)),
+            mckp._qkey(cutoff),
+        )
+        hit = self._frontier_lru.get(key)
+        if hit is None:
+            hit = mckp.grouped_frontier(
+                groups,
+                cutoff,
+                curve_cache=self._agg_curves,
+                plan_cache=self._plan_cache,
+                chain_cache=self._chain_cache,
+            )
+            self._frontier_lru[key] = hit
+        return hit
 
     @property
     def supports_grouped(self) -> bool:  # type: ignore[override]
@@ -543,7 +922,9 @@ class EcoShiftController(_OptionCachingController):
             sol, baselines, budget, self.system.grid
         )
 
-    def allocate_grouped(self, batch: ReceiverBatch, budget: float) -> Allocation:
+    def allocate_grouped(
+        self, batch: ReceiverBatch, budget: float, _skip_pins: bool = False
+    ) -> Allocation:
         """Group-collapsed round: receivers sharing (surface identity,
         baseline) solve as one behaviour class; bitwise equal to
         :meth:`allocate` on the same receivers.
@@ -554,7 +935,13 @@ class EcoShiftController(_OptionCachingController):
         unchanged returns the cached Allocation (``last_solver = "cache"``).
         With ``fused=True`` the solve runs on the device; a round the
         fused path declines runs on the host with ``last_solver = "host"``
-        and ``last_fallback_reason`` set."""
+        and ``last_fallback_reason`` set.  A round with active NACK pins
+        runs :meth:`_solve_pinned` (``last_solver = "pinned"``); a round
+        with a budget outlook first lets the planner shrink its budget."""
+        if not _skip_pins:
+            pins = self._active_pins(batch)
+            if pins:
+                return self._solve_pinned(batch, budget, pins)
         incremental = (
             self.incremental
             and self.solver == "sparse"
@@ -563,6 +950,13 @@ class EcoShiftController(_OptionCachingController):
         if incremental:
             self._grouping.sync(batch, None, self._group_table)
             groups = self._grouping.groups(0)
+        else:
+            groups = self._grouped_options_for(batch)
+        if self._plan_pending():
+            budget = self._plan_budget(
+                budget, lambda cap: self._planning_frontier(groups, cap)
+            )
+        if incremental:
             key = (
                 tuple(sorted(mckp._group_token(g) for g in groups)),
                 mckp._qkey(budget),
@@ -574,7 +968,6 @@ class EcoShiftController(_OptionCachingController):
                 self.last_fallback_reason = ""
                 return hit
         else:
-            groups = self._grouped_options_for(batch)
             key = None
         sol = None
         self.last_device_s = 0.0
@@ -604,12 +997,6 @@ class EcoShiftController(_OptionCachingController):
         if key is not None:
             self._alloc_cache[key] = alloc
         return alloc
-
-    def set_budget_outlook(self, caps, weights=None) -> None:
-        raise NotImplementedError(
-            "budget outlooks (MPC planning) are not ported yet: ROADMAP.md, "
-            "queue 1, item 5"
-        )
 
     def allocate_batch(
         self,
@@ -680,26 +1067,34 @@ class EcoShiftHierController(EcoShiftController):
         system: SystemSpec,
         *,
         config: ControllerConfig | None = None,
+        topology=None,
         solver: str | None = None,
         unit: float | None = None,
         predictor=None,
         incremental: bool | None = None,
         fused: bool | None = None,
         horizon: int | None = None,
+        eco_factor: float | None = None,
+        plan_levels: int | None = None,
+        plan_grid: int | None = None,
         device: str | torch.device | None = None,
     ):
         cfg = (config if config is not None else ControllerConfig()).merged(
-            solver=solver, unit=unit, predictor=predictor,
-            incremental=incremental, fused=fused, horizon=horizon, device=device,
+            topology=topology, solver=solver, unit=unit, predictor=predictor,
+            incremental=incremental, fused=fused, horizon=horizon,
+            eco_factor=eco_factor, plan_levels=plan_levels,
+            plan_grid=plan_grid, device=device,
         )
         super().__init__(system, config=cfg)
-        #: repro_torch.core.topology.PowerTopology, bound by the engine
-        #: (bind_topology)
-        self.topology = None
+        #: repro_torch.core.topology.PowerTopology (given here, or bound by
+        #: the engine through bind_topology)
+        self.topology = cfg.topology
         #: optional OnlinePredictor: serves surfaces, ingests telemetry
         self.predictor = cfg.predictor
         #: (class layout, quantized budget) -> leaf frontier DP arrays
         self._frontiers = mckp.LRUCache(self.MAX_FRONTIERS)
+        if cfg.max_frontiers is not None:
+            self._frontiers.resize(cfg.max_frontiers)
         #: persistent hierarchical warm state (frontier aggregation tree
         #: combines, pick multisets, leaf solutions, merged-class plans),
         #: content-keyed and LRU-bounded
@@ -738,7 +1133,9 @@ class EcoShiftHierController(EcoShiftController):
         # flat fallback under the hier name would hide the missing tree
         raise ValueError(self._NO_TOPOLOGY)
 
-    def allocate_grouped(self, batch: ReceiverBatch, budget: float):
+    def allocate_grouped(
+        self, batch: ReceiverBatch, budget: float, _skip_pins: bool = False
+    ):
         raise ValueError(self._NO_TOPOLOGY)
 
     def invalidate(self, names: Sequence[str] | None = None) -> None:
@@ -764,7 +1161,11 @@ class EcoShiftHierController(EcoShiftController):
         return by_leaf
 
     def allocate_hierarchical(
-        self, batch: ReceiverBatch, budget: float, domain_extra: np.ndarray
+        self,
+        batch: ReceiverBatch,
+        budget: float,
+        domain_extra: np.ndarray,
+        _skip_pins: bool = False,
     ) -> Allocation:
         """One topology-aware round: per-domain capped frontiers + the
         upper-level budget-split DP through the frontier aggregation tree.
@@ -776,13 +1177,23 @@ class EcoShiftHierController(EcoShiftController):
         batch, unchanged leaves reuse their frontier DPs and assembled
         solutions, and a round whose classes, budget and headroom are all
         unchanged returns the cached Allocation (``last_solver = "cache"``)
-        — always bit-for-bit the from-scratch solve.  The reference's NACK
-        pins come with the fault paths (ROADMAP.md, queue 1, item 5)."""
+        — always bit-for-bit the from-scratch solve.  Active NACK pins route
+        the round through :meth:`_solve_pinned` under the domain headroom;
+        with a budget outlook the planner first reads the root frontier
+        (``mckp.hierarchical_frontier`` on the warm ``HierState``) and may
+        shrink the round's budget."""
         if self.topology is None:
             raise ValueError("ecoshift_hier needs a bound PowerTopology")
         if batch.domain_ids is None:
             raise ValueError("receiver batch carries no domain ids")
         batch = self._served_batch(batch)
+        if not _skip_pins:
+            pins = self._active_pins(batch)
+            if pins:
+                self.last_domain_spent = {}
+                return self._solve_pinned(
+                    batch, budget, pins, domain_extra=domain_extra
+                )
         incremental = (
             self.incremental
             and self.solver == "sparse"
@@ -796,6 +1207,21 @@ class EcoShiftHierController(EcoShiftController):
             )
             by_leaf = self._grouping.by_scope()
             state = self._hier_state
+        else:
+            by_leaf = self._grouped_options_by_leaf(batch)
+        root = None
+        if self._plan_pending():
+            # the root frontier under the quantized cutoff serves every
+            # horizon cap; the primed leaf frontiers and tree combines are
+            # the same warm HierState entries the solve below reuses
+            root = policies_mod.domain_tree(self.topology, domain_extra, by_leaf)
+            budget = self._plan_budget(
+                budget,
+                lambda cap: mckp.hierarchical_frontier(
+                    root, cap, state=self._hier_state
+                ),
+            )
+        if incremental:
             key = (
                 tuple(
                     (leaf, tuple(sorted(mckp._group_token(g) for g in groups)))
@@ -811,9 +1237,8 @@ class EcoShiftHierController(EcoShiftController):
                 self.last_device_s = 0.0
                 self.last_fallback_reason = ""
                 return hit[0]
-        else:
-            by_leaf = self._grouped_options_by_leaf(batch)
-        root = policies_mod.domain_tree(self.topology, domain_extra, by_leaf)
+        if root is None:
+            root = policies_mod.domain_tree(self.topology, domain_extra, by_leaf)
         sol = None
         self.last_device_s = 0.0
         self.last_fallback_reason = ""
@@ -901,12 +1326,16 @@ class EcoShiftOnlineController(EcoShiftController):
         }
         return super().allocate(receivers, baselines, budget, seen)
 
-    def allocate_grouped(self, batch: ReceiverBatch, budget: float):
+    def allocate_grouped(
+        self, batch: ReceiverBatch, budget: float, _skip_pins: bool = False
+    ):
         served = [
             self.predictor.surface_for(name, sid)
             for name, sid in zip(batch.names, batch.surface_ids)
         ]
-        return super().allocate_grouped(_served_replace(batch, served), budget)
+        return super().allocate_grouped(
+            _served_replace(batch, served), budget, _skip_pins=_skip_pins
+        )
 
     def ingest_telemetry(self, records) -> None:
         self.predictor.observe(records)
@@ -937,6 +1366,7 @@ class OracleController(_OptionCachingController):
         self.config = cfg
         #: None = auto (brute force iff <= 10 receivers)
         self.exhaustive = cfg.exhaustive
+        self._apply_cache_bounds(cfg)
 
     def _brute(self, n: int) -> bool:
         return n <= 10 if self.exhaustive is None else self.exhaustive
@@ -952,10 +1382,13 @@ class OracleController(_OptionCachingController):
             sol, baselines, budget, self.system.grid
         )
 
-    def allocate_grouped(self, batch: ReceiverBatch, budget: float) -> Allocation:
-        # The reference first re-solves around NACK-pinned receivers; the
-        # port has no actuation reports yet, so no pins (ROADMAP.md, queue
-        # 1, item 5).
+    def allocate_grouped(
+        self, batch: ReceiverBatch, budget: float, _skip_pins: bool = False
+    ) -> Allocation:
+        if not _skip_pins:
+            pins = self._active_pins(batch)
+            if pins:
+                return self._solve_pinned(batch, budget, pins)
         groups = self._grouped_options_for(batch)
         sol = (
             mckp.brute_force(mckp.expand_groups(groups), budget)
@@ -972,3 +1405,202 @@ class OracleController(_OptionCachingController):
 def make_controller(policy: str, system: SystemSpec, **kwargs) -> Controller:
     """Instantiate a registered controller by policy name."""
     return policies_mod.get_controller(policy, system, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Snapshot persistence
+# ---------------------------------------------------------------------------
+
+
+def _pack(obj):
+    """Encode a snapshot tree for msgpack: ndarrays as tagged
+    dtype/shape/bytes, tuples and non-str-keyed dicts as tagged lists
+    (msgpack has neither).  Inverse of :func:`_unpack`; float64 values
+    round-trip exactly, so a file keeps the bit-for-bit restore."""
+    if isinstance(obj, np.ndarray):
+        return {
+            "__nd__": True,
+            "dtype": str(obj.dtype),
+            "shape": list(obj.shape),
+            "data": obj.tobytes(),
+        }
+    if isinstance(obj, (np.floating, np.integer, np.bool_)):
+        return obj.item()
+    if isinstance(obj, tuple):
+        return {"__tup__": [_pack(v) for v in obj]}
+    if isinstance(obj, list):
+        return [_pack(v) for v in obj]
+    if isinstance(obj, dict):
+        if all(isinstance(k, str) for k in obj):
+            return {k: _pack(v) for k, v in obj.items()}
+        return {"__map__": [[_pack(k), _pack(v)] for k, v in obj.items()]}
+    return obj
+
+
+def _unpack(obj):
+    if isinstance(obj, dict):
+        if obj.get("__nd__"):
+            return (
+                np.frombuffer(obj["data"], dtype=obj["dtype"])
+                .reshape(obj["shape"])
+                .copy()
+            )
+        if "__tup__" in obj:
+            return tuple(_unpack(v) for v in obj["__tup__"])
+        if "__map__" in obj:
+            return {_unpack(k): _unpack(v) for k, v in obj["__map__"]}
+        return {k: _unpack(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_unpack(v) for v in obj]
+    return obj
+
+
+def _mp_head(out: bytearray, n: int, fix: int, fix_max: int, wide: tuple) -> None:
+    """A msgpack length header: the fix form below ``fix_max``, else the
+    narrowest of ``wide`` = ((marker, struct code, limit), ...)."""
+    if n < fix_max:
+        out.append(fix | n)
+        return
+    for marker, code, limit in wide:
+        if n < limit:
+            out.append(marker)
+            out += struct.pack(">" + code, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _mp_encode(obj, out: bytearray) -> None:
+    """msgpack encoding of the subset ``_pack`` yields (nil, bool, int,
+    float64, str, bin, array, str-keyed map), byte for byte what
+    ``msgpack.packb(obj, use_bin_type=True)`` writes."""
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True:
+        out.append(0xC3)
+    elif obj is False:
+        out.append(0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj < 0x80 or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        elif obj >= 0:
+            for marker, code in ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")):
+                if obj < 1 << (8 * struct.calcsize(code)):
+                    out.append(marker)
+                    out += struct.pack(">" + code, obj)
+                    return
+            raise ValueError(f"integer {obj} too large for msgpack")
+        else:
+            for marker, code in ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"), (0xD3, "q")):
+                if obj >= -(1 << (8 * struct.calcsize(code) - 1)):
+                    out.append(marker)
+                    out += struct.pack(">" + code, obj)
+                    return
+            raise ValueError(f"integer {obj} too small for msgpack")
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _mp_head(out, len(b), 0xA0, 32,
+                 ((0xD9, "B", 1 << 8), (0xDA, "H", 1 << 16), (0xDB, "I", 1 << 32)))
+        out += b
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        b = bytes(obj)
+        _mp_head(out, len(b), 0, 0,
+                 ((0xC4, "B", 1 << 8), (0xC5, "H", 1 << 16), (0xC6, "I", 1 << 32)))
+        out += b
+    elif isinstance(obj, list):
+        _mp_head(out, len(obj), 0x90, 16, ((0xDC, "H", 1 << 16), (0xDD, "I", 1 << 32)))
+        for v in obj:
+            _mp_encode(v, out)
+    elif isinstance(obj, dict):
+        _mp_head(out, len(obj), 0x80, 16, ((0xDE, "H", 1 << 16), (0xDF, "I", 1 << 32)))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"snapshot map key {k!r} is not a str")
+            _mp_encode(k, out)
+            _mp_encode(v, out)
+    else:
+        raise TypeError(f"cannot encode {type(obj).__name__} in a snapshot")
+
+
+#: fixed-width msgpack markers: marker -> (struct code, kind)
+_MP_FIXED = {
+    0xCC: ("B", "int"), 0xCD: ("H", "int"), 0xCE: ("I", "int"), 0xCF: ("Q", "int"),
+    0xD0: ("b", "int"), 0xD1: ("h", "int"), 0xD2: ("i", "int"), 0xD3: ("q", "int"),
+    0xCA: ("f", "float"), 0xCB: ("d", "float"),
+    0xD9: ("B", "str"), 0xDA: ("H", "str"), 0xDB: ("I", "str"),
+    0xC4: ("B", "bin"), 0xC5: ("H", "bin"), 0xC6: ("I", "bin"),
+    0xDC: ("H", "array"), 0xDD: ("I", "array"),
+    0xDE: ("H", "map"), 0xDF: ("I", "map"),
+}
+
+
+def _mp_decode(buf: bytes, pos: int) -> tuple[object, int]:
+    """Decode one msgpack object at ``pos``; returns (object, next pos)."""
+    m = buf[pos]
+    pos += 1
+    if m <= 0x7F:
+        return m, pos
+    if m >= 0xE0:
+        return m - 0x100, pos
+    if 0x80 <= m <= 0x8F:
+        kind, n = "map", m & 0x0F
+    elif 0x90 <= m <= 0x9F:
+        kind, n = "array", m & 0x0F
+    elif 0xA0 <= m <= 0xBF:
+        kind, n = "str", m & 0x1F
+    elif m in (0xC0, 0xC2, 0xC3):
+        return {0xC0: None, 0xC2: False, 0xC3: True}[m], pos
+    elif m in _MP_FIXED:
+        code, kind = _MP_FIXED[m]
+        size = struct.calcsize(code)
+        (n,) = struct.unpack_from(">" + code, buf, pos)
+        pos += size
+        if kind in ("int", "float"):
+            return n, pos
+    else:
+        raise ValueError(f"msgpack marker 0x{m:02x} is outside the snapshot format")
+    if kind == "str":
+        return bytes(buf[pos:pos + n]).decode("utf-8"), pos + n
+    if kind == "bin":
+        return bytes(buf[pos:pos + n]), pos + n
+    if kind == "array":
+        out = []
+        for _ in range(n):
+            v, pos = _mp_decode(buf, pos)
+            out.append(v)
+        return out, pos
+    d = {}
+    for _ in range(n):
+        k, pos = _mp_decode(buf, pos)
+        v, pos = _mp_decode(buf, pos)
+        d[k] = v
+    return d, pos
+
+
+def save_snapshot(path: str, snap: Mapping) -> None:
+    """Persist a ``Controller.snapshot()`` crash-safely: write a sibling
+    temp file, flush + fsync, then ``os.replace`` — a crash mid-write
+    leaves the previous snapshot intact, never a torn file.  The bytes are
+    the reference's (``msgpack.packb(_pack(snap), use_bin_type=True)``),
+    written by the port's own encoder."""
+    out = bytearray()
+    _mp_encode(_pack(dict(snap)), out)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(out)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def load_snapshot(path: str) -> dict:
+    """Read a snapshot written by :func:`save_snapshot` (or by the
+    reference's) — feed the result to ``Controller.restore``."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    obj, pos = _mp_decode(buf, 0)
+    if pos != len(buf):
+        raise ValueError(f"{path}: {len(buf) - pos} trailing bytes after the snapshot")
+    return _unpack(obj)

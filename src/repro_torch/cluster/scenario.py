@@ -17,22 +17,21 @@ mid-sim — and enables ``DomainCapChange`` events (e.g. a rack PDU
 derating mid-scenario).  The engine applies a round's events, cap changes
 included, before it resolves that round's budget and domain headroom.
 
-Fault injection is not ported yet: its builders raise (ROADMAP.md,
-queue 1, item 5).
+Fault events (``repro_torch.cluster.faults``) attach on a channel of their
+own (``with_faults``, ``with_fault_storm``), and the engine resolves them
+per round.  ``carbon_aware`` and ``price_capped`` build the day-scale
+scenarios the receding-horizon planner rides.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Sequence, Union
 
 from repro_torch.cluster import budget as budget_mod
 from repro_torch.core.surfaces import PowerSurface
 from repro_torch.core.types import AppSpec
-
-FAULTS_NOT_PORTED = (
-    "fault injection is not ported yet: ROADMAP.md, queue 1, item 5"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,8 +138,12 @@ class Scenario:
     #: the engine adopts and enforces it, and the builders validate node-id
     #: events against its leaf ranges at build time
     topology: object | None = None
-    #: optional grid CO2-intensity signal, recorded alongside results
+    #: optional grid CO2-intensity signal, recorded alongside results and
+    #: the receding-horizon planner's preferred weight feed
     carbon: object = None
+    #: fault-injection events (repro_torch.cluster.faults) the engine
+    #: resolves per round
+    faults: tuple = ()
 
     def __post_init__(self):
         for field in ("budget", "power_price", "carbon"):
@@ -158,6 +161,23 @@ class Scenario:
 
     def carbon_at(self, r: int) -> float | None:
         return None if self.carbon is None else self.carbon.budget_at(r)
+
+    def budget_forecast(self, r: int, horizon: int) -> tuple:
+        """Budgets for rounds ``r .. r+horizon-1`` (None entries where
+        unset) — what the receding-horizon controller plans over."""
+        if self.budget is None:
+            return (None,) * int(horizon)
+        return tuple(self.budget.forecast(r, horizon))
+
+    def price_forecast(self, r: int, horizon: int) -> tuple:
+        if self.power_price is None:
+            return (None,) * int(horizon)
+        return tuple(self.power_price.forecast(r, horizon))
+
+    def carbon_forecast(self, r: int, horizon: int) -> tuple:
+        if self.carbon is None:
+            return (None,) * int(horizon)
+        return tuple(self.carbon.forecast(r, horizon))
 
     def events_at(self, r: int) -> tuple[Event, ...]:
         idx = self.__dict__.get("_events_by_round")
@@ -233,8 +253,96 @@ class Scenario:
         ``cap`` watts from ``round`` on."""
         return self.with_event(DomainCapChange(round=round, domain=domain, cap=cap))
 
-    def with_faults(self, faults) -> "Scenario":
-        raise NotImplementedError(FAULTS_NOT_PORTED)
+    def with_faults(self, faults: Sequence) -> "Scenario":
+        """Attach fault-injection events (``repro_torch.cluster.faults``):
+        telemetry drops/delays/corruption/stale repeats, actuation
+        NACK/partial/delayed application, controller crashes.  Validated
+        at build time; the engine resolves them per round."""
+        from repro_torch.cluster import faults as faults_mod
+
+        faults = tuple(faults)
+        faults_mod.validate_faults(faults, self.n_rounds)
+        return dataclasses.replace(self, faults=self.faults + faults)
 
     def with_fault_storm(self, seed: int = 0, **rates) -> "Scenario":
-        raise NotImplementedError(FAULTS_NOT_PORTED)
+        """Attach a seeded randomized fault storm (see
+        :func:`repro_torch.cluster.faults.fault_storm` for the rates)."""
+        from repro_torch.cluster import faults as faults_mod
+
+        return self.with_faults(
+            faults_mod.fault_storm(self.n_rounds, seed, **rates)
+        )
+
+    def with_budget_provider(self, provider) -> "Scenario":
+        """Attach a budget source: any ``BudgetProvider`` or a raw trace
+        (wrapped via ``budget.as_provider``)."""
+        return dataclasses.replace(
+            self, budget=budget_mod.as_provider(provider)
+        )
+
+    def with_budget(self, budget) -> "Scenario":
+        """Deprecated raw-trace budget attachment: an alias of
+        :meth:`with_budget_provider` that warns."""
+        warnings.warn(
+            "Scenario.with_budget(trace) is deprecated; use "
+            "Scenario.with_budget_provider(...) (raw traces are "
+            "auto-wrapped into a TraceReplayProvider)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.with_budget_provider(budget)
+
+    def with_power_price(self, provider) -> "Scenario":
+        """Attach a price signal: recorded per round, and the horizon
+        planner's weight feed when no carbon signal is attached."""
+        return dataclasses.replace(
+            self, power_price=budget_mod.as_provider(provider)
+        )
+
+    def with_carbon(self, provider) -> "Scenario":
+        """Attach a grid CO2-intensity signal (provider or raw trace): the
+        receding-horizon planner weights its spend plan by it."""
+        return dataclasses.replace(
+            self, carbon=budget_mod.as_provider(provider)
+        )
+
+    @staticmethod
+    def carbon_aware(
+        n_rounds: int,
+        budget,
+        carbon=None,
+        power_price=None,
+    ) -> "Scenario":
+        """Day-scale carbon-aware scenario: a budget provider plus CO2 and
+        price signals (defaults: the shipped ``co2_day`` / ``price_day``
+        fixtures resampled to ``n_rounds``)."""
+        return Scenario(
+            n_rounds=n_rounds,
+            budget=budget_mod.as_provider(budget),
+            carbon=budget_mod.as_provider(
+                carbon
+                if carbon is not None
+                else budget_mod.fixture_trace("co2_day", n_rounds)
+            ),
+            power_price=budget_mod.as_provider(
+                power_price
+                if power_price is not None
+                else budget_mod.fixture_trace("price_day", n_rounds)
+            ),
+        )
+
+    @staticmethod
+    def price_capped(
+        n_rounds: int,
+        pool_watts: float,
+        prices: Sequence[float],
+        spend_cap: float,
+    ) -> "Scenario":
+        """Budget follows a power-price trace: each round distributes
+        ``min(pool, spend_cap / price)`` watts."""
+        budgets = [
+            min(pool_watts, spend_cap / max(float(p), 1e-12)) for p in prices
+        ]
+        return Scenario(
+            n_rounds=n_rounds, budget=tuple(budgets), power_price=tuple(prices)
+        )

@@ -34,11 +34,22 @@ committed draw), and after every allocation the engine records each
 domain's draw and cap (``RoundRecord.domain_draw`` / ``domain_caps``) and,
 for hierarchical controllers, raises on any domain driven past its cap.
 
-Not ported yet (ROADMAP.md, queue 1, item 5): the fault-injection
-actuation and PowerGuard path, receding-horizon budget outlooks, and the
-device-resident ``DeviceView`` of the node columns.  The reference's natural-draw and baseline-runtime
-caches are left out: they speed up the host side and never change a
-result.
+A scenario's fault events (``Scenario.with_faults``) run through a
+per-run :class:`~repro_torch.cluster.faults.FaultInjector`: a controller
+crash (and restore) at round start, actuation faults replayed through the
+per-receiver actuator registers after the allocation, then the PowerGuard
+watchdog, which derates the applied caps back under every domain cap and
+the round budget in the same round (``RoundRecord.overdraw_w`` /
+``derate_w`` / ``excursion_domains`` / ``nacked``), and the telemetry
+channel's drops, delays, stale repeats and corruption on the way back
+(``telemetry_faults``).  A controller with ``horizon > 1`` gets the
+scenario's budget forecast and its CO2 (else price) weights every round
+(``set_budget_outlook``).
+
+The device-resident ``DeviceView`` of the node columns is not ported
+(ROADMAP.md, queue 1, item 2.3).  The reference's natural-draw and
+baseline-runtime caches are left out: they speed up the host side and
+never change a result.
 """
 
 from __future__ import annotations
@@ -334,9 +345,22 @@ class RoundRecord:
     #: allocate_s, conserve_s, measure_s); allocate_s ends after the
     #: solver's device -> host copy, so it covers the device work
     seconds: dict | None = None
-    #: per-domain draw / cap watts this round (topology sims only)
+    #: per-domain draw / cap watts this round (topology sims only); on a
+    #: faulted round the draw is the settled (post-PowerGuard) one
     domain_draw: dict | None = None
     domain_caps: dict | None = None
+    #: PowerGuard columns (fault-injected runs): worst pre-derate cap
+    #: excursion in watts, total watts the emergency derate clawed back,
+    #: and the domains that excursed this round ("__budget__" for the
+    #: cluster budget)
+    overdraw_w: float = 0.0
+    derate_w: float = 0.0
+    excursion_domains: tuple = ()
+    #: receivers whose applied caps deviated from the command (NACK /
+    #: partial / delayed actuation, or a PowerGuard derate)
+    nacked: tuple = ()
+    #: telemetry fault kinds applied to this round's batch
+    telemetry_faults: tuple = ()
 
     @property
     def avg_improvement(self) -> float:
@@ -424,6 +448,17 @@ class ClusterSim:
         #: per-domain draw/cap observed by the latest topology round
         self.last_domain_draw: dict[str, float] | None = None
         self.last_domain_caps: dict[str, float] | None = None
+        #: actuator registers (fault-injected runs), one row per table row:
+        #: the (c, g) caps physically applied last round (``_reg_has``
+        #: False = at the table baseline), and the command a one-round
+        #: delayed application queued (``_pend_has``)
+        self._reg_caps = np.zeros((0, 2))
+        self._reg_has = np.zeros(0, dtype=bool)
+        self._pend_caps = np.zeros((0, 2))
+        self._pend_has = np.zeros(0, dtype=bool)
+        #: ActuationReport / PowerGuard stats of the latest faulted round
+        self.last_actuation: object | None = None
+        self.last_guard: dict | None = None
         if topology is not None:
             self.attach_topology(topology)
 
@@ -673,8 +708,13 @@ class ClusterSim:
                     self.topology.index[event.domain], event.round, event.cap
                 )
             else:
+                known = ", ".join(
+                    c.__name__ for c in scenario_mod.Event.__args__
+                )
                 raise TypeError(
-                    f"unknown event type {type(event).__name__!r}: {event!r}"
+                    f"unknown event type {type(event).__name__!r}: {event!r} "
+                    f"(expected one of: {known}; fault events attach via "
+                    f"Scenario.with_faults, not the event timeline)"
                 )
         rows = (
             np.unique(np.concatenate(dirty))
@@ -962,6 +1002,156 @@ class ClusterSim:
                     f"(allocated {spend[i]:.3f} W > {extra[i]:.3f} W headroom)"
                 )
 
+    def _actuate_and_guard(
+        self,
+        recv_rows: np.ndarray,
+        names: Sequence[str],
+        base: np.ndarray,
+        new: np.ndarray,
+        budget: float,
+        round_index: int,
+        headroom,
+        injector,
+    ):
+        """Resolve actuation faults, then run the PowerGuard watchdog.
+
+        **Actuation** replays this round's commanded caps through the
+        per-receiver actuator registers: a NACKed receiver keeps its
+        previously applied caps, a partial application moves only a
+        fraction of the way from them, a delayed command lands *next*
+        round (displacing that round's own command).  **PowerGuard** is
+        the firmware-level safety net below the control-plane RPC channel:
+        it checks the *applied* (post-fault) per-domain draw against the
+        topology caps — and the cluster total against the round budget —
+        and claws any overdraw back with the proportional emergency
+        derate of ``PowerTopology.derate_factors``.  The derate lands
+        within the same round, so a stuck actuator causes at most a
+        sub-round excursion; registers settle on the post-derate caps, so
+        the stuck state itself is safe from the next round on (DESIGN.md
+        §18).
+
+        Returns ``(applied, report, guard)``: the settled [n, 2] caps that
+        measurement (and therefore telemetry) sees, the
+        :class:`~repro_torch.cluster.faults.ActuationReport` for the controller,
+        and the PowerGuard stats dict (overdraw/derate/excursions).
+        """
+        from repro_torch.cluster import faults as faults_mod
+
+        t = self.table
+        rows = np.asarray(recv_rows)
+        self._grow_registers(len(t))
+        # a receiver starts from last round's applied caps (the baseline if
+        # it had none), and a command queued by last round's delay lands
+        # now, displacing this round's own command
+        prev = np.where(self._reg_has[rows, None], self._reg_caps[rows], base)
+        cmd = np.where(self._pend_has[rows, None], self._pend_caps[rows], new)
+        self._pend_has[rows] = False
+        applied = cmd.copy()
+        plan = injector.actuation_plan(round_index, list(names), t.node_ids[rows])
+        if plan:
+            pos = {nm: i for i, nm in enumerate(names)}
+            idx: dict[str, list[int]] = {"nack": [], "partial": [], "delay": []}
+            frac: list[float] = []
+            for nm, (kind, param) in plan.items():
+                idx[kind].append(pos[nm])
+                if kind == "partial":
+                    frac.append(param)
+            nack, part, delay = (
+                np.asarray(idx[k], dtype=np.int64) for k in ("nack", "partial", "delay")
+            )
+            applied[nack] = prev[nack]
+            applied[part] = prev[part] + np.asarray(frac)[:, None] * (cmd[part] - prev[part])
+            self._pend_caps[rows[delay]] = new[delay]
+            self._pend_has[rows[delay]] = True
+            applied[delay] = prev[delay]
+
+        # -- PowerGuard: settle the applied caps under every power cap ----
+        guard = {
+            "overdraw_w": 0.0,
+            "derate_w": 0.0,
+            "excursion_domains": (),
+        }
+        extra_node = (
+            applied.sum(axis=1) - base.sum(axis=1)
+            if len(names)
+            else np.zeros(0)
+        )
+        excursions: list[str] = []
+        worst = 0.0
+        pre_total = float(extra_node.sum()) if len(names) else 0.0
+        if self.topology is not None and len(names):
+            topo = self.topology
+            leaf = np.zeros(len(topo), dtype=np.float64)
+            leaf += np.bincount(
+                t.domain_id[recv_rows], weights=extra_node, minlength=len(topo)
+            )
+            spend = topo.aggregate_leaves(leaf)
+            allowed, committed, caps = headroom
+            over = spend - allowed
+            hot = np.flatnonzero(over > 1e-9)
+            if hot.size:
+                worst = float(over[hot].max())
+                excursions.extend(topo.names[int(i)] for i in hot)
+                factors = topo.derate_factors(spend, allowed)
+                f_leaf = factors[t.domain_id[recv_rows]]
+                applied = base + f_leaf[:, None] * (applied - base)
+                extra_node = applied.sum(axis=1) - base.sum(axis=1)
+        if len(names):
+            tot = float(extra_node.sum())
+            if tot > budget + 1e-9:
+                worst = max(worst, tot - budget)
+                if not excursions:
+                    excursions.append("__budget__")
+                scale = budget / tot if tot > 0 else 0.0
+                applied = base + scale * (applied - base)
+                extra_node = applied.sum(axis=1) - base.sum(axis=1)
+            guard["derate_w"] = max(0.0, pre_total - float(extra_node.sum()))
+        guard["overdraw_w"] = worst
+        guard["excursion_domains"] = tuple(excursions)
+        if self.topology is not None and len(names):
+            # settled per-domain draw overwrites the commanded accounting
+            topo = self.topology
+            leaf = np.zeros(len(topo), dtype=np.float64)
+            leaf += np.bincount(
+                t.domain_id[recv_rows], weights=extra_node, minlength=len(topo)
+            )
+            spend = topo.aggregate_leaves(leaf)
+            _, committed, caps = headroom
+            self.last_domain_draw = dict(
+                zip(topo.names, (committed + spend).tolist())
+            )
+
+        # -- settle registers + report ------------------------------------
+        # non-receivers revert to baseline caps: they lose their registers
+        # (and any queued command), so a later receiver round starts from
+        # the table baseline again
+        self._reg_has[:] = False
+        self._reg_has[rows] = True
+        self._reg_caps[rows] = applied
+        queued = self._pend_has[rows]
+        self._pend_has[:] = False
+        self._pend_has[rows] = queued
+        ok = np.all(np.abs(applied - new) <= 1e-9, axis=1)
+        bad = np.flatnonzero(~ok)
+        report = faults_mod.ActuationReport(
+            round=round_index,
+            acked=tuple(itertools.compress(names, ok.tolist())),
+            nacked=tuple(names[i] for i in bad.tolist()),
+            applied={
+                names[i]: (a[0], a[1]) for i, a in zip(bad.tolist(), applied[bad].tolist())
+            },
+        )
+        return applied, report, guard
+
+    def _grow_registers(self, n: int) -> None:
+        """Extend the actuator registers to ``n`` table rows (arrivals)."""
+        grow = n - len(self._reg_has)
+        if grow > 0:
+            self._reg_caps = np.concatenate([self._reg_caps, np.zeros((grow, 2))])
+            self._reg_has = np.concatenate([self._reg_has, np.zeros(grow, dtype=bool)])
+            self._pend_caps = np.concatenate([self._pend_caps, np.zeros((grow, 2))])
+            self._pend_has = np.concatenate([self._pend_has, np.zeros(grow, dtype=bool)])
+
     def run_round(
         self,
         controller,
@@ -971,6 +1161,7 @@ class ClusterSim:
         receivers: Sequence[NodeState] | None = None,
         round_index: int = 0,
         _recv_rows: np.ndarray | None = None,
+        _fault_injector=None,
     ) -> EmulationResult:
         """One redistribution round under a stateful controller.
 
@@ -981,7 +1172,10 @@ class ClusterSim:
         with leaf domain ids and the per-domain headroom; otherwise
         controllers with ``supports_grouped`` allocate from a columnar
         ``ReceiverBatch`` and everyone else gets the per-instance view.
-        Phase seconds of the round land in ``last_round_seconds``.
+        Under ``_fault_injector`` the commanded caps pass through the
+        actuation faults and PowerGuard (:meth:`_actuate_and_guard`) before
+        measurement, and the controller gets the actuation report.  Phase
+        seconds of the round land in ``last_round_seconds``.
         """
         secs = self.last_round_seconds = {}
         t = self.table
@@ -1049,6 +1243,19 @@ class ClusterSim:
         secs["conserve_s"] = _time.perf_counter() - tp
 
         tp = _time.perf_counter()
+        self.last_actuation = None
+        self.last_guard = None
+        if _fault_injector is not None:
+            new, report, guard = self._actuate_and_guard(
+                recv_rows, names, base, new, b, round_index,
+                headroom, _fault_injector,
+            )
+            self.last_actuation = report
+            self.last_guard = guard
+            controller.notify_actuation(report)
+        secs["actuate_s"] = _time.perf_counter() - tp
+
+        tp = _time.perf_counter()
         rng = self.round_rng(controller.policy, round_index)
         t0, t1, imp = self._measure_rows(recv_rows, base, new, rng)
         improvements = dict(zip(names, imp.tolist()))
@@ -1087,7 +1294,11 @@ class ClusterSim:
         on this sim's device).  ``policy_surfaces`` may be a mapping or a
         callable ``sim -> mapping`` re-evaluated each round.  A scenario's
         topology is attached here unless the sim already carries one (a
-        different one raises).
+        different one raises).  Fault events run through a fresh
+        :class:`~repro_torch.cluster.faults.FaultInjector` (crashes at round
+        start, actuation and PowerGuard in the round, telemetry delivery
+        after it), and a controller with ``horizon > 1`` gets the budget
+        outlook before each round.
         """
         if isinstance(controller, str):
             from repro_torch.core import policies as policies_mod
@@ -1102,8 +1313,25 @@ class ClusterSim:
                 raise ValueError(
                     "scenario topology differs from the sim's attached one"
                 )
+        injector = None
+        if scenario.faults:
+            from repro_torch.cluster import faults as faults_mod
+
+            injector = faults_mod.FaultInjector(scenario.faults)
+            # fresh actuator state per run: registers model the physical
+            # caps of this run's actuation channel
+            self._reg_has[:] = False
+            self._pend_has[:] = False
         records: list[RoundRecord] = []
+        # receding-horizon controllers get a per-round budget outlook: the
+        # provider-backed cap forecast plus the CO2 (or price) weights
+        horizon = int(getattr(controller, "horizon", 1) or 1)
+        feeds_outlook = horizon > 1 and hasattr(controller, "set_budget_outlook")
         for r in range(scenario.n_rounds):
+            if injector is not None:
+                # crashes fire at round start, before the round's events and
+                # solve: the replacement process handles the whole round
+                injector.maybe_crash(r, controller)
             events = scenario.events_at(r)
             touched = self.apply_events(events) if events else []
             if touched:
@@ -1115,13 +1343,35 @@ class ClusterSim:
             )
             _, recv_rows, pool = self.partition_rows()
             b = scenario.budget_at(r)
+            if feeds_outlook:
+                caps = [
+                    pool if c is None else float(c)
+                    for c in scenario.budget_forecast(r, horizon)
+                ]
+                caps[0] = float(pool if b is None else b)
+                weights = scenario.carbon_forecast(r, horizon)
+                if all(w is None for w in weights):
+                    weights = scenario.price_forecast(r, horizon)
+                controller.set_budget_outlook(
+                    caps,
+                    None
+                    if all(w is None for w in weights)
+                    else [1.0 if w is None else float(w) for w in weights],
+                )
             res = self.run_round(
                 controller,
                 budget=pool if b is None else b,
                 policy_surfaces=seen,
                 round_index=r,
                 _recv_rows=recv_rows,
+                _fault_injector=injector,
             )
+            if injector is not None:
+                delivered, tkinds = injector.deliver(r, self.last_telemetry)
+            else:
+                delivered, tkinds = [self.last_telemetry], ()
+            guard = self.last_guard or {}
+            report = self.last_actuation
             records.append(
                 RoundRecord(
                     round=r,
@@ -1135,7 +1385,15 @@ class ClusterSim:
                     seconds=dict(self.last_round_seconds),
                     domain_draw=self.last_domain_draw,
                     domain_caps=self.last_domain_caps,
+                    overdraw_w=float(guard.get("overdraw_w", 0.0)),
+                    derate_w=float(guard.get("derate_w", 0.0)),
+                    excursion_domains=tuple(guard.get("excursion_domains", ())),
+                    nacked=tuple(report.nacked) if report is not None else (),
+                    telemetry_faults=tkinds,
                 )
             )
-            controller.ingest_telemetry(self.last_telemetry)
+            for tb in delivered:
+                controller.ingest_telemetry(tb)
+            if injector is not None:
+                injector.end_round(r, controller)
         return SimResult(policy=controller.policy, records=records)

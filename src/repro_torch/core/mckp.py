@@ -1,8 +1,7 @@
 """Multiple-choice-knapsack solvers for reclaimed-power distribution (§3.2.2).
 
-The port of ``repro.core.mckp``, minus the receding-horizon (MPC) planner
-(ROADMAP.md, queue 1, item 5).  Four families, each bitwise equal to the
-reference:
+The port of ``repro.core.mckp``.  Four solver families, each bitwise equal
+to the reference, and the receding-horizon planner:
 
  * the host sparse solvers — ``solve_sparse`` (paper Algorithm 1, the dict
    DP) and the group-collapsed ``solve_sparse_grouped`` (binary-split
@@ -29,6 +28,10 @@ reference:
    reference's names: ``"pallas"`` runs each stage through the dense CUDA
    kernel on a CUDA device and through its plain version on the CPU;
    ``"jax"`` runs the plain version on either, in float32.
+ * receding-horizon (MPC) planning — ``grouped_frontier`` /
+   ``hierarchical_frontier`` read the cluster's value-vs-spend frontier off
+   the warm caches, and ``plan_horizon`` runs the H-round spend DP over its
+   record points (``frontier_records``); numpy, O(H · levels · grid).
 
 Determinism contract (the reference's): receivers with byte-identical
 option tables are interchangeable, so ``solve_sparse`` canonicalizes —
@@ -1474,6 +1477,178 @@ def solve_hierarchical(
         )
     raise ValueError(f"unknown hierarchical solver {solver!r}")
 
+
+# ---------------------------------------------------------------------------
+# Receding-horizon (MPC) spend planning over cached frontiers (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+
+
+def grouped_frontier(
+    groups: Sequence[GroupedOptions],
+    budget: float,
+    *,
+    curve_cache: MutableMapping | None = None,
+    plan_cache: MutableMapping | None = None,
+    chain_cache: MutableMapping | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """The flat cluster's value-vs-spend frontier under ``budget``: the
+    final ``(dp_keys, dp_vals)`` arrays of the grouped super-stage DP —
+    exactly the states ``solve_sparse_grouped`` ends on, built from the
+    same warm class-curve caches (so a planning call right before the
+    round's solve costs one super-stage scan, not a re-aggregation)."""
+    plan = _leaf_plan(groups, plan_cache)
+    curves_, _ = _class_curves(plan.classes, budget, curve_cache, chain_cache)
+    dp_keys, dp_vals, _ = _superstage_dp(
+        [(c.keys, c.vals) for c in curves_], budget
+    )
+    return dp_keys, dp_vals
+
+
+def hierarchical_frontier(
+    root: DomainGroups, budget: float, state: HierState | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """The root domain's capped value-vs-spend frontier under ``budget``
+    (the frontier aggregation tree, warm through ``state``) — the
+    hierarchical analogue of :func:`grouped_frontier`."""
+    st = state if state is not None else HierState()
+    _prime_leaf_frontiers(root, float(budget), st)
+    f = _sparse_frontier(root, float(budget), st)
+    return f.keys, f.vals
+
+
+def frontier_records(
+    keys: np.ndarray, vals: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Monotone record points of a frontier: the (spend, value) states
+    where the running-max value strictly increases.
+
+    Every record point is an *achievable* DP state (never an
+    interpolation), and the smallest-spend argmax under any cap ``c`` is
+    the last record point with spend <= ``c`` — the same state
+    ``np.argmax`` (first max) picks in the myopic solvers, so planning on
+    records commits only spends the real solve would also choose.
+    """
+    if len(keys) == 0:
+        return keys, vals
+    run = np.maximum.accumulate(vals)
+    rec = np.ones(len(vals), dtype=bool)
+    rec[1:] = vals[1:] > run[:-1]
+    return keys[rec], vals[rec]
+
+
+def plan_horizon(
+    keys: np.ndarray,
+    vals: np.ndarray,
+    caps: Sequence[float],
+    weights: Sequence[float] | None = None,
+    *,
+    eco_factor: float = 1.0,
+    levels: int = 64,
+    grid: int = 2048,
+) -> list[float] | None:
+    """Receding-horizon spend plan over one value-vs-spend frontier.
+
+    Given the cluster frontier ``(keys, vals)`` (spends ascending, best
+    value per spend) and an H-round cap forecast, choose per-round spends
+    ``s_i`` maximizing ``sum_i value(s_i)`` subject to
+
+     * ``s_i <= caps[i]`` — the instantaneous budget is *never* exceeded
+       (the committed round-0 spend is a cap on that round's solve);
+     * ``sum_i weights[i] * s_i <= eco_factor * sum_i weights[i] * umax_i``
+       — the horizon's weighted spend (CO2 grams, dollars) may use at
+       most an ``eco_factor`` fraction of what the myopic cap-riding
+       controller would emit (``umax_i`` = the myopic best spend under
+       ``caps[i]``).
+
+    The temporal coupling is entirely in the weighted allowance: with
+    ``eco_factor >= 1`` the per-round maxima are jointly feasible, the DP
+    returns them, and the plan never restricts anything — so the function
+    returns **None** ("don't touch the budget") and the caller takes the
+    *literally unchanged* myopic code path, which is what certifies H=1
+    and eco-off parity bit-for-bit.  With ``eco_factor < 1`` the DP banks
+    spend away from dirty/expensive rounds (high weight) and rounds of
+    diminishing marginal value, and toward clean rounds and upcoming
+    deratings.
+
+    Implementation: per-round candidates are the frontier's record points
+    under that round's cap, subsampled to <= ``levels`` spends (the cap
+    state and zero state always kept); the DP runs on an integer
+    allowance lattice of ``grid`` cells with *ceil* cost rounding — so a
+    returned plan's true weighted spend is <= the allowance, never over
+    (conservative by construction).  Cost is O(H * levels * grid) numpy
+    ops, independent of cluster size — the frontier did the heavy
+    lifting.  Returns the planned spends (round order) or None when the
+    plan would not restrict round 0.
+    """
+    H = len(caps)
+    if H <= 1 or eco_factor >= 1.0 or len(keys) == 0:
+        return None
+    rk, rv = frontier_records(np.asarray(keys), np.asarray(vals))
+    if len(rk) == 0 or rk[-1] <= 0.0:
+        return None
+    w = (
+        np.ones(H, dtype=np.float64)
+        if weights is None
+        else np.clip(np.asarray(weights, dtype=np.float64), 0.0, None)
+    )
+    # per-round candidate spends/values + the myopic optimum under each cap
+    cand_k: list[np.ndarray] = []
+    cand_v: list[np.ndarray] = []
+    umax = np.empty(H, dtype=np.float64)
+    for i in range(H):
+        hi = int(np.searchsorted(rk, float(caps[i]) + 1e-9))
+        if hi == 0:
+            # no positive-spend state fits: the only choice is state 0
+            hi = 1
+        umax[i] = rk[hi - 1]
+        if hi > levels:
+            idx = np.unique(
+                np.round(np.linspace(0, hi - 1, levels)).astype(np.int64)
+            )
+        else:
+            idx = np.arange(hi)
+        cand_k.append(rk[idx])
+        cand_v.append(rv[idx])
+    allowance = float(eco_factor) * float(np.dot(w, umax))
+    if allowance <= 0.0:
+        plan = [float(k[0]) for k in cand_k]
+        return None if plan[0] >= umax[0] - 1e-9 else plan
+    q = allowance / float(grid)
+    # integer ceil costs: sum(cost_cells) <= grid  =>  weighted spend <=
+    # allowance exactly (each candidate's cells over-cover its true cost)
+    costs = [
+        np.ceil(w[i] * cand_k[i] / q - 1e-9).astype(np.int64)
+        for i in range(H)
+    ]
+    neg = -np.inf
+    dp = np.zeros(grid + 1, dtype=np.float64)
+    wins: list[np.ndarray] = []
+    t_axis = np.arange(grid + 1)
+    for i in range(H):
+        c, v = costs[i], cand_v[i]
+        feas = c <= grid
+        if not feas.any():
+            return None
+        c, v = c[feas], v[feas]
+        # cand[j, t] = dp[t - c_j] + v_j where feasible
+        shifted = np.full((len(c), grid + 1), neg)
+        for j in range(len(c)):
+            cj = int(c[j])
+            shifted[j, cj:] = dp[: grid + 1 - cj] + v[j]
+        win = np.argmax(shifted, axis=0)
+        dp = shifted[win, t_axis]
+        # record the candidate index in the unfiltered array for backtrack
+        wins.append((np.flatnonzero(feas)[win], np.asarray(c)[win]))
+    if not np.isfinite(dp[grid]):
+        return None
+    plan = [0.0] * H
+    t = grid
+    for i in range(H - 1, -1, -1):
+        jfull, cwin = wins[i]
+        j = int(jfull[t])
+        plan[i] = float(cand_k[i][j])
+        t -= int(cwin[t])
+    return None if plan[0] >= umax[0] - 1e-9 else plan
 
 
 # ---------------------------------------------------------------------------

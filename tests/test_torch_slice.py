@@ -411,30 +411,31 @@ def test_device_none_needs_a_card(monkeypatch, suites):
 
 
 def test_unported_paths_raise(suites):
+    """What still raises on the controller path: an unknown solver, and a
+    flat allocation asked of the hierarchical controller.  The MPC and
+    fault entry points that used to raise here (ROADMAP.md, queue 1, item
+    5) now run; tests/test_torch_faults.py and tests/test_torch_mpc.py
+    hold them against the reference."""
     _, (apps, surfs) = suites
     sysm = types.SYSTEM_2
-    for kw in ({"solver": "pallas", "horizon": 4}, {"horizon": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_controller("ecoshift", sysm, device=CPU, **kw)
     with pytest.raises(ValueError, match="unknown solver"):
         make_controller("ecoshift", sysm, solver="cuda", device=CPU)
-    for call in (lambda: Scenario.constant(2).with_faults(()),
-                 lambda: Scenario.constant(2).with_fault_storm(seed=0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
-            call()
+    for kw in ({"solver": "pallas", "horizon": 4}, {"horizon": 2}):
+        assert make_controller("ecoshift", sysm, device=CPU, **kw).horizon == kw["horizon"]
+    assert Scenario.constant(2).with_faults(()).faults == ()
+    assert Scenario.constant(2).with_fault_storm(seed=0).faults == ()
     ctrl = make_controller("ecoshift", sysm, solver="dense", device=CPU)
     assert isinstance(ctrl.config, tcontroller.ControllerConfig)
     # the flat controller is not hierarchical: the engine never hands it a
     # domain tree (the hierarchical path is ecoshift_hier's)
     assert not getattr(ctrl, "supports_hierarchical", False)
-    hier = make_controller("ecoshift_hier", sysm, device=CPU)
+    hier = make_controller("ecoshift_hier", sysm, device=CPU, horizon=3)
+    with pytest.raises(ValueError, match="ecoshift_hier allocates per power domain"):
+        hier.allocate_grouped(None, 1.0)
     for c in (ctrl, hier):
-        for call in (lambda: c.notify_actuation(None), c.snapshot,
-                     lambda: c.set_budget_outlook([1.0])):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
-                call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
-        make_controller("ecoshift_hier", sysm, device=CPU, horizon=3)
+        assert c.snapshot() == {"policy": c.policy, "pins": {}, "pin_round": -1}
+        c.set_budget_outlook([1.0])
+        assert c._outlook == ((1.0,), None)
 
 
 # ---------------------------------------------------------------------------
